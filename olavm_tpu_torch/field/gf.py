@@ -1,0 +1,305 @@
+"""Goldilocks arithmetic on torch tensors; counterpart of olavm_tpu/field/gf.py.
+
+A Goldilocks array is ONE int64 tensor holding the bit patterns of canonical
+uint64 values (< p); values >= 2^63 read as negative int64. The TPU package's
+(lo, hi) u32 pair exists only because the TPU has no 64-bit multiply.
+
+On a CUDA tensor, `mul`, `add` and `sub` launch the hand-written kernels of
+csrc/gf_mul.cu (K3 and its add/sub siblings). On a CPU tensor they run the
+plain versions beside them (`mul_plain`, ...), which use only int64 torch
+ops: torch has no add, shift or compare for uint64, so the plain versions
+work on 32-bit limbs held in int64, mask after every `>>` (it sign-extends
+on int64) and never form a product above 2^49, so nothing overflows. The
+plain versions run on any device; they are what the kernels are held
+against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from olavm_tpu.field import goldilocks as g
+
+from .. import kernels
+
+P = g.P
+M32 = 0xFFFFFFFF
+M16 = 0xFFFF
+
+
+# ---------------------------------------------------------------------------
+# host <-> device
+# ---------------------------------------------------------------------------
+
+
+def from_u64(x, device) -> torch.Tensor:
+    """numpy uint64 (or int list) -> int64 tensor on `device`.
+
+    Precondition: values are canonical (< p); they are copied, not reduced
+    (as olavm_tpu/field/gf.py:47-52)."""
+    a = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
+    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+
+
+def to_u64(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor -> numpy uint64 array (same bits)."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def _i64(value: int) -> int:
+    """Canonical field value -> its int64 bit pattern."""
+    value = int(value) % P
+    return value - (1 << 64) if value >= 1 << 63 else value
+
+
+def full(shape, value: int, device) -> torch.Tensor:
+    return torch.full(shape, _i64(value), dtype=torch.int64, device=device)
+
+
+def zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int64, device=device)
+
+
+def ones(shape, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.int64, device=device)
+
+
+def scalar(value: int, device) -> torch.Tensor:
+    """0-dim field constant."""
+    return full((), value, device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (int64 limbs; any device)
+# ---------------------------------------------------------------------------
+
+
+def _split(a):
+    return a & M32, (a >> 32) & M32
+
+
+def _join(lo, hi):
+    return (hi << 32) | lo
+
+
+def _canon(lo, hi):
+    """Subtract p once if hi*2^32 + lo >= p (lo, hi < 2^32)."""
+    ge = (hi == M32) & (lo >= 1)
+    return torch.where(ge, lo - 1, lo), torch.where(ge, torch.zeros_like(hi), hi)
+
+
+def add_plain(a, b):
+    al, ah = _split(a)
+    bl, bh = _split(b)
+    lo = al + bl
+    hi = ah + bh + (lo >> 32)
+    lo = lo & M32
+    carry = hi >> 32
+    hi = hi & M32
+    # 2^64 == EPSILON: fold the carry; a, b < p keeps this below p
+    lo = lo + carry * M32
+    hi = hi + (lo >> 32)
+    lo = lo & M32
+    return _join(*_canon(lo, hi))
+
+
+def sub_plain(a, b):
+    al, ah = _split(a)
+    bl, bh = _split(b)
+    lo = al - bl
+    hi = ah - bh + (lo >> 32)  # arithmetic shift: borrow of -1
+    lo = lo & M32
+    borrow = (hi < 0).to(torch.int64)
+    hi = hi & M32
+    # a - b + 2^64 on borrow; a - b + p = that - EPSILON (never below 0)
+    lo = lo - borrow * M32
+    hi = hi + (lo >> 32)
+    lo = lo & M32
+    return _join(lo, hi)
+
+
+def _mul32(x, y):
+    """x * y for x, y < 2^32 as (lo32, hi32), partial products < 2^49."""
+    t0 = x * (y & M16)
+    t1 = x * (y >> 16)
+    lo = t0 + ((t1 & M16) << 16)
+    hi = (t1 >> 16) + (lo >> 32)
+    return lo & M32, hi
+
+
+def _reduce128(l0, l1, l2, l3):
+    """(l3:l2:l1:l0) mod p with 2^64 == EPSILON, 2^96 == -1 (the reduction of
+    olavm_tpu/field/gf.py:169): x_lo - l3 + l2 * EPSILON, then normalise."""
+    lo = l0 - l3 - l2
+    hi = l1 + l2 + (lo >> 32)
+    lo = lo & M32
+    # value in [-2^32, 2^65): add p if negative ...
+    neg = (hi < 0).to(torch.int64)
+    lo = lo + neg
+    hi = hi + neg * M32 + (lo >> 32)
+    lo = lo & M32
+    # ... fold 2^64 into EPSILON if it reached 2^64 (then it is < p) ...
+    carry = hi >> 32
+    hi = hi & M32
+    lo = lo + carry * M32
+    hi = hi + (lo >> 32)
+    lo = lo & M32
+    # ... and subtract p once if it is still >= p
+    return _join(*_canon(lo, hi))
+
+
+def mul_plain(a, b):
+    al, ah = _split(a)
+    bl, bh = _split(b)
+    ll_lo, ll_hi = _mul32(al, bl)
+    lh_lo, lh_hi = _mul32(al, bh)
+    hl_lo, hl_hi = _mul32(ah, bl)
+    hh_lo, hh_hi = _mul32(ah, bh)
+    s1 = ll_hi + lh_lo + hl_lo
+    s2 = lh_hi + hl_hi + hh_lo + (s1 >> 32)
+    l3 = hh_hi + (s2 >> 32)
+    return _reduce128(ll_lo, s1 & M32, s2 & M32, l3)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CPU tensors take the plain version, CUDA tensors the kernel
+# ---------------------------------------------------------------------------
+
+_BINOPS = {"gf_mul": "gl_mul", "gf_add": "gl_add", "gf_sub": "gl_sub"}
+
+
+def _binop_cuda(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch one element-wise kernel. A one-element operand is read with
+    stride 0; other shape mismatches are broadcast into a contiguous copy."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if a.numel() == 1 and b.numel() != 1:
+        sa, sb = 0, 1
+        b = b.expand(shape).contiguous()
+        a = a.contiguous()
+    elif b.numel() == 1:
+        sa, sb = 1, 0
+        a = a.expand(shape).contiguous()
+        b = b.contiguous()
+    else:
+        sa = sb = 1
+        a = a.expand(shape).contiguous()
+        b = b.expand(shape).contiguous()
+    kernels.require_cuda_int64(a, b)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    n = out.numel()
+    if n == 0:
+        return out
+    fn = getattr(kernels.lib("gf_mul"), _BINOPS[name])
+    kernels.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, sa, sb,
+                     kernels.stream_ptr(out)), name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def _on_cuda(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    return a.device.type == "cuda"
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(a, b):
+        return _binop_cuda("gf_mul", a, b)
+    return mul_plain(a, b)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(a, b):
+        return _binop_cuda("gf_add", a, b)
+    return add_plain(a, b)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(a, b):
+        return _binop_cuda("gf_sub", a, b)
+    return sub_plain(a, b)
+
+
+# ---------------------------------------------------------------------------
+# derived ops
+# ---------------------------------------------------------------------------
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    return sub(scalar(0, a.device), a)
+
+
+def square(a: torch.Tensor) -> torch.Tensor:
+    return mul(a, a)
+
+
+def mul_u32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Multiply by a small host constant (k < 2^32)."""
+    return mul(a, scalar(k, a.device))
+
+
+def exp_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a ** e for a host-known integer exponent (square-and-multiply)."""
+    result = None
+    base = a
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = square(base)
+    if result is None:
+        return torch.ones_like(a)
+    return result
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """Element-wise a^(p-2) (0 maps to 0)."""
+    return exp_const(a, P - 2)
+
+
+def powers(base, n: int, device) -> torch.Tensor:
+    """[1, b, b^2, ..., b^{n-1}] by log-doubling (log2(n) array muls).
+    `base` is a host int or a 0-dim tensor."""
+    if not isinstance(base, torch.Tensor):
+        base = scalar(base, device)
+    out = ones((1,), device)
+    length = 1
+    while length < n:
+        step = min(length, n - length)
+        shift = exp_const(base, length)
+        out = torch.cat([out, mul(out[:step], shift)])
+        length += step
+    return out[:n]
+
+
+def sum_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Modular sum along a dimension (log-depth pairwise halving)."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
+        x = add(x[..., 0::2], x[..., 1::2])
+    return x[..., 0]
+
+
+def prefix_prod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive modular prefix product, log depth (Hillis-Steele scan, as
+    olavm_tpu/field/gf.py:317)."""
+    y = x.movedim(dim, -1)
+    n = y.shape[-1]
+    d = 1
+    while d < n:
+        shifted = torch.cat([torch.ones_like(y[..., :d]), y[..., :-d]], dim=-1)
+        y = mul(y, shifted)
+        d <<= 1
+    return y.movedim(-1, dim)
+
+
+def select(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(pred, a, b)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a == b

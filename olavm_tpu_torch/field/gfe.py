@@ -1,0 +1,111 @@
+"""Quadratic extension GF(p^2) on torch tensors; counterpart of
+olavm_tpu/field/gfe.py. An element is (re, im) = re + im*phi with phi^2 = 7
+(plonky2 goldilocks_extensions.rs, W = 7); both parts are gf arrays."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import gf
+
+W = 7
+
+
+class GFE(NamedTuple):
+    re: torch.Tensor
+    im: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.re.shape
+
+    def __getitem__(self, idx):
+        return GFE(self.re[idx], self.im[idx])
+
+
+def from_base(a: torch.Tensor) -> GFE:
+    return GFE(a, torch.zeros_like(a))
+
+
+def from_u64_pair(pair, device) -> GFE:
+    """Host (..., 2) u64 array -> GFE on `device`."""
+    arr = np.asarray(pair, dtype=np.uint64)
+    return GFE(gf.from_u64(arr[..., 0], device), gf.from_u64(arr[..., 1], device))
+
+
+def to_u64_pair(x: GFE) -> np.ndarray:
+    return np.stack([gf.to_u64(x.re), gf.to_u64(x.im)], axis=-1)
+
+
+def zeros(shape, device) -> GFE:
+    return GFE(gf.zeros(shape, device), gf.zeros(shape, device))
+
+
+def ones(shape, device) -> GFE:
+    return GFE(gf.ones(shape, device), gf.zeros(shape, device))
+
+
+def add(a: GFE, b: GFE) -> GFE:
+    return GFE(gf.add(a.re, b.re), gf.add(a.im, b.im))
+
+
+def sub(a: GFE, b: GFE) -> GFE:
+    return GFE(gf.sub(a.re, b.re), gf.sub(a.im, b.im))
+
+
+def mul(a: GFE, b: GFE) -> GFE:
+    t0 = gf.mul(a.re, b.re)
+    t1 = gf.mul(a.im, b.im)
+    t2 = gf.mul(gf.add(a.re, a.im), gf.add(b.re, b.im))
+    re = gf.add(t0, gf.mul_u32(t1, W))
+    im = gf.sub(t2, gf.add(t0, t1))
+    return GFE(re, im)
+
+
+def mul_base(a: GFE, b: torch.Tensor) -> GFE:
+    return GFE(gf.mul(a.re, b), gf.mul(a.im, b))
+
+
+def scale_add(acc: GFE, alpha: GFE, c: torch.Tensor) -> GFE:
+    """acc * alpha + c (base c)."""
+    return add(mul(acc, alpha), from_base(c))
+
+
+def exp_const(a: GFE, e: int) -> GFE:
+    result = None
+    base = a
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    if result is None:
+        return GFE(torch.ones_like(a.re), torch.zeros_like(a.im))
+    return result
+
+
+def powers(base: GFE, n: int) -> GFE:
+    """[1, b, ..., b^{n-1}] by log-doubling; base is a 0-dim GFE."""
+    out = ones((1,), base.re.device)
+    length = 1
+    while length < n:
+        step = min(length, n - length)
+        nxt = mul(out[:step], exp_const(base, length))
+        out = GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
+        length += step
+    return out[:n]
+
+
+def inv(a: GFE) -> GFE:
+    """Norm trick: (a0 - a1*phi) / (a0^2 - 7*a1^2)."""
+    norm = gf.sub(gf.mul(a.re, a.re), gf.mul_u32(gf.mul(a.im, a.im), W))
+    ninv = gf.inv(norm)
+    return GFE(gf.mul(a.re, ninv), gf.mul(gf.neg(a.im), ninv))
+
+
+def sum_reduce(x: GFE, dim: int = -1) -> GFE:
+    return GFE(gf.sum_reduce(x.re, dim), gf.sum_reduce(x.im, dim))

@@ -1,0 +1,147 @@
+"""Build, load and count the hand-written Hopper kernels in csrc/.
+
+Each source in csrc/ is compiled by nvcc for sm_90a into its own shared
+library with a plain C interface, and loaded with ctypes (no PyTorch headers,
+so a build takes seconds). The build runs at first use, into _build/ beside
+this file (listed in .gitignore); `build()` compiles all sources at once, one
+nvcc process per source.
+
+Every C entry point launches on the stream it is given and returns the CUDA
+error code of its launches; `check` raises on a nonzero code. Each kernel
+wrapper adds one to its entry of `LAUNCHES` per call that launched its
+kernel, so a run can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("gf_mul", "ntt", "poseidon")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+_VP = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+# C signatures of every entry point, by library
+_SIGNATURES = {
+    "gf_mul": {
+        "gl_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
+        "gl_add": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
+        "gl_sub": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
+    },
+    "ntt": {"gl_ntt": [_VP, _VP, _VP, _I64, _INT, _VP]},
+    "poseidon": {
+        "gl_poseidon_init": [_VP] * 8,
+        "gl_poseidon_permute": [_VP, _VP, _I64, _VP],
+    },
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in
+                 [CSRC / f"{name}.cu", CSRC / "goldilocks.cuh"])
+    return lib.stat().st_mtime < newest
+
+
+def build(names=SOURCES, force: bool = False) -> dict:
+    """Compile the named sources (all at once, one nvcc each) where the
+    library is missing or older than its source. Returns seconds per built
+    source; raises with nvcc's output if any build fails."""
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    times, errors = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed:\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, _lib_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return times
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for one csrc source, built first if needed."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            handle = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(handle, fn).argtypes = argtypes
+                getattr(handle, fn).restype = _INT
+            _libs[name] = handle
+        return _libs[name]
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def require_cuda_int64(*tensors: torch.Tensor) -> None:
+    """Kernel inputs: int64 Goldilocks bit patterns, contiguous, on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"kernel operands must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if t.dtype != torch.int64:
+            raise TypeError(f"kernel operands must be int64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")

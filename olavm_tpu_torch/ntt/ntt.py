@@ -1,0 +1,143 @@
+"""Batched Goldilocks NTT on torch tensors; counterpart of olavm_tpu/ntt/ntt.py
+and olavm_tpu/ntt/pallas_ntt.py.
+
+Conventions match the reference polynomial layer: `ntt` maps coefficients to
+values p(w^i) in natural order along the last axis; `intt` inverts it and
+applies 1/n after the transform; `coset_lde` evaluates on shift * H' with
+|H'| = n << rate_bits.
+
+On a CUDA tensor every transform with n >= 2 launches K1 (csrc/ntt.cu): one
+bit-reversal pass, then one launch per radix-2 stage. On a CPU tensor the
+plain version runs: the radix-2 ladder of olavm_tpu/ntt/ntt.py:89-136 with
+the plain field ops.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from olavm_tpu.field import goldilocks as g
+from olavm_tpu.utils.bits import bit_reversal_perm, log2_strict
+
+from .. import kernels
+from ..field import gf
+
+# (device, log_n, inverse) -> (n/2,) powers of the (inverse) root of unity
+_TWIDDLES: dict = {}
+# (device, n) -> bit-reversal index tensor
+_PERMS: dict = {}
+
+
+def twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
+    """Powers w^0 .. w^{n/2-1} of the order-n root (or its inverse), built
+    once per size and device by log-doubling."""
+    key = (str(device), log_n, inverse)
+    if key not in _TWIDDLES:
+        root = g.primitive_root_of_unity(log_n)
+        if inverse:
+            root = g.inv(root)
+        _TWIDDLES[key] = gf.powers(root, 1 << (log_n - 1), device)
+    return _TWIDDLES[key]
+
+
+def ntt_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Radix-2 DIT ladder over the last axis, plain field ops, no 1/n."""
+    n = x.shape[-1]
+    log_n = log2_strict(n)
+    if n == 1:
+        return x
+    tw = twiddles(log_n, inverse, x.device)
+    x = x.index_select(-1, bitrev_perm(n, x.device))
+    batch = x.shape[:-1]
+    for s in range(1, log_n + 1):
+        half = 1 << (s - 1)
+        xv = x.reshape(*batch, n >> s, 2, half)
+        u = xv[..., 0, :]
+        v = gf.mul_plain(xv[..., 1, :], tw[:: 1 << (log_n - s)][:half])
+        x = torch.stack([gf.add_plain(u, v), gf.sub_plain(u, v)],
+                        dim=-2).reshape(*batch, n)
+    return x
+
+
+def _ntt_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    n = x.shape[-1]
+    log_n = log2_strict(n)
+    x = x.contiguous()
+    tw = twiddles(log_n, inverse, x.device)
+    kernels.require_cuda_int64(x, tw)
+    out = torch.empty_like(x)
+    batch = x.numel() // n
+    if batch == 0:
+        return out
+    rc = kernels.lib("ntt").gl_ntt(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                                   batch, log_n, kernels.stream_ptr(x))
+    kernels.check(rc, "ntt")
+    kernels.LAUNCHES["ntt"] += 1
+    return out
+
+
+def _transform(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    if x.shape[-1] == 1:
+        return x
+    if x.device.type == "cuda":
+        return _ntt_cuda(x, inverse)
+    return ntt_plain(x, inverse)
+
+
+def ntt(x: torch.Tensor) -> torch.Tensor:
+    """Coefficients -> values p(g^i), natural order, along the last axis."""
+    return _transform(x, inverse=False)
+
+
+def intt(x: torch.Tensor) -> torch.Tensor:
+    """Values p(g^i) -> coefficients."""
+    n = x.shape[-1]
+    log2_strict(n)
+    if n == 1:
+        return x
+    y = _transform(x, inverse=True)
+    return gf.mul(y, gf.scalar(g.inv(n), x.device))
+
+
+def scale_by_powers(x: torch.Tensor, base: int) -> torch.Tensor:
+    """x[..., j] *= base^j (host-known base)."""
+    return gf.mul(x, gf.powers(base, x.shape[-1], x.device))
+
+
+def coset_fft(coeffs: torch.Tensor,
+              shift: int = g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    """Evaluate polynomials on shift*H, |H| = len(coeffs)."""
+    return ntt(scale_by_powers(coeffs, shift))
+
+
+def coset_ifft(values: torch.Tensor,
+               shift: int = g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    """Inverse of coset_fft."""
+    return scale_by_powers(intt(values), g.inv(shift))
+
+
+def _pad_last(x: torch.Tensor, size: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, size - x.shape[-1]))
+
+
+def lde(coeffs: torch.Tensor, rate_bits: int) -> torch.Tensor:
+    """Pad coefficients by 2^rate_bits and evaluate over the larger subgroup."""
+    return ntt(_pad_last(coeffs, coeffs.shape[-1] << rate_bits))
+
+
+def coset_lde(coeffs: torch.Tensor, rate_bits: int,
+              shift: int = g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    """Evaluations of the degree-<n polynomials on shift*H',
+    |H'| = n << rate_bits."""
+    padded = _pad_last(coeffs, coeffs.shape[-1] << rate_bits)
+    return ntt(scale_by_powers(padded, shift))
+
+
+def bitrev_perm(n: int, device) -> torch.Tensor:
+    """Index tensor r with r[i] = reverse_bits(i, log2(n)), cached."""
+    key = (str(device), n)
+    if key not in _PERMS:
+        _PERMS[key] = torch.from_numpy(
+            np.ascontiguousarray(bit_reversal_perm(n))).to(device)
+    return _PERMS[key]

@@ -1,0 +1,506 @@
+"""Multi-table STARK prover on the card; counterpart of
+olavm_tpu/stark/prover_device.py.
+
+Same transcript as the host prover (circuits/src/stark/prover.rs): the
+Fiat-Shamir challenger and proof objects stay on the host, every O(n) step
+runs on the given torch device.
+
+  commit    = iNTT -> coset LDE -> blake3 leaves -> Merkle levels
+              (oracle_device; LDEs stay resident)
+  Z polys   = log-depth grand products (ctl_device)
+  quotient  = each table's own eval_packed, run through TorchOps over each
+              residue class of the quotient coset in one pass
+  openings  = power-table inner products at zeta and g*zeta
+  FRI       = values-first composition poly, fold, re-FFT, extension-leaf
+              trees, the Poseidon PoW grind (K2), query gathers
+
+On a CUDA device the products launch K3, the transforms K1 and the grind K2.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from olavm_tpu.field import extension as ge
+from olavm_tpu.field import goldilocks as g
+from olavm_tpu.stark.consumer import ConstraintConsumer
+from olavm_tpu.stark.cross_table_lookup import (
+    CtlCheckVars,
+    eval_cross_table_lookup_checks,
+)
+from olavm_tpu.stark.stark_base import (
+    eval_permutation_checks,
+    get_n_grand_product_challenge_sets,
+)
+from olavm_tpu.utils.bits import log2_strict
+from olavm_tpu.utils.timing import TimingTree
+
+from ..field import gf
+from ..field import gfe
+from ..hash import poseidon as pos
+from ..merkle import device as dmerkle
+from ..ntt import ntt as dntt
+from .challenger import Challenger
+from .config import StarkConfig
+from .ctl_device import ctl_data_device, permutation_z_polys_device
+from .fri import (
+    FriInitialTreeProof,
+    FriProof,
+    FriQueryRound,
+    FriQueryStep,
+    _reduce_with_alpha,
+)
+from .oracle_device import (
+    DevicePolynomialBatch,
+    build_tree_device,
+    gather_paths_dev,
+)
+from .ops import TorchOps
+from .proof import AllProof, PublicValues, StarkOpeningSet, StarkProof
+from .prover import fri_instance_for_stark
+
+logger = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# quotient
+# ---------------------------------------------------------------------------
+
+
+def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
+                                  permutation_challenges, ctl_data, alphas,
+                                  degree_bits, num_permutation_zs
+                                  ) -> torch.Tensor:
+    """compute_quotient_polys (prover.rs:571-705) on the device.
+
+    The quotient coset g*W (|W| = n << qdb) splits into 2^qdb residue
+    classes j = k * 2^qdb + r; class r is the coset (g * w^r) * H, its
+    values are a strided slice of the resident LDE, and the "next row" of a
+    point stays inside its class as a roll by one. Each class runs the
+    table's constraints (eval_packed, permutation checks, CTL checks, in the
+    host prover's order) in one pass. Returns the (num_alphas * qdf, n)
+    quotient chunks' coefficients."""
+    device = trace_batch.lde.device
+    F = TorchOps(device)
+    degree = 1 << degree_bits
+    qdf = stark.quotient_degree_factor()
+    qdb = qdf.bit_length() - 1
+    if (1 << qdb) < qdf:
+        qdb += 1
+    rate_bits = config.fri_config.rate_bits
+    assert qdb <= rate_bits
+    size = degree << qdb
+    step = 1 << (rate_bits - qdb)
+
+    w = g.primitive_root_of_unity(degree_bits + qdb)
+    gen = g.primitive_root_of_unity(degree_bits)
+    g_last = g.inv(gen)  # gen^{n-1}
+    n_inv = g.inv(degree)
+    alphas_dev = [gf.scalar(a, device) for a in alphas]
+    gen_pows = gf.powers(gen, degree, device)
+    one = gf.scalar(1, device)
+
+    per_class = [[] for _ in alphas]  # [alpha][class] -> (n,)
+    for r in range(1 << qdb):
+        shift = g.mul(g.MULTIPLICATIVE_GROUP_GENERATOR, pow(w, r, g.P))
+        # selectors on shift*H, where x^n - 1 == shift^n - 1 is constant:
+        # L_0(x) = (x^n-1)/(n (x-1)); L_{n-1}(x) = (x^n-1) g^{-1}/(n (x-g^{-1}))
+        xs = gf.mul(gen_pows, gf.scalar(shift, device))
+        c = g.sub(pow(shift, degree, g.P), 1)
+        c_n = g.mul(c, n_inv)
+        lagrange_first = gf.mul(gf.scalar(c_n, device),
+                                gf.inv(gf.sub(xs, one)))
+        z_last = gf.sub(xs, gf.scalar(g_last, device))
+        lagrange_last = gf.mul(gf.scalar(g.mul(c_n, g_last), device),
+                               gf.inv(z_last))
+
+        cols = slice(r * step, None, 1 << rate_bits)
+        local = trace_batch.lde[:, cols].contiguous()
+        zs_local = zs_batch.lde[:, cols].contiguous()
+        lv, nv = list(local), list(local.roll(-1, 1))
+        zl, zn = list(zs_local), list(zs_local.roll(-1, 1))
+
+        consumer = ConstraintConsumer(F, alphas_dev, z_last, lagrange_first,
+                                      lagrange_last)
+        stark.eval_packed(lv, nv, consumer)
+        if permutation_challenges is not None:
+            eval_permutation_checks(
+                stark, config, lv, nv, zl[:num_permutation_zs],
+                zn[:num_permutation_zs], permutation_challenges, consumer)
+        ctl_vars = [
+            CtlCheckVars(zl[num_permutation_zs + i], zn[num_permutation_zs + i],
+                         zc.challenge, zc.columns, zc.filter_column)
+            for i, zc in enumerate(ctl_data.zs_columns)
+        ]
+        eval_cross_table_lookup_checks(lv, nv, ctl_vars, consumer)
+
+        zh_inv = gf.scalar(g.inv(c), device)
+        for i, acc in enumerate(consumer.accumulators()):
+            per_class[i].append(gf.mul(acc.expand(degree), zh_inv))
+
+    # interleave classes back to natural coset order j = (k << qdb) | r
+    quotient_values = torch.stack(
+        [torch.stack(pc, dim=-1).reshape(size) for pc in per_class])
+    coeffs = dntt.coset_ifft(quotient_values)
+    limit = degree * qdf
+    if limit < size and bool((coeffs[:, limit:] != 0).any()):
+        raise ValueError("quotient not divisible by Z_H — constraint violated")
+    # split into degree-n chunks (prover.rs:463-478), alpha-major
+    return coeffs[:, :limit].reshape(len(alphas) * qdf, degree)
+
+
+# ---------------------------------------------------------------------------
+# openings
+# ---------------------------------------------------------------------------
+
+
+def _ext_power_table(z, n: int, device) -> gfe.GFE:
+    """Device [1, z, ..., z^{n-1}] for a host extension point z."""
+    return gfe.powers(gfe.from_u64_pair(np.asarray(z, dtype=np.uint64), device),
+                      n)
+
+
+def _openings_device(trace_batch, zs_batch, quotient_batch,
+                     z_values: torch.Tensor, zeta, gen: int,
+                     num_permutation_zs: int) -> StarkOpeningSet:
+    """StarkOpeningSet::new (proof.rs:199-233): every polynomial at zeta and
+    g*zeta, plus the last CTL Z values (base values at g^{n-1})."""
+    device = trace_batch.lde.device
+    degree = trace_batch.coeffs.shape[1]
+    pows = _ext_power_table(zeta, degree, device)
+    pows_n = _ext_power_table(ge.scalar_mul(zeta, gen), degree, device)
+    nq = quotient_batch.coeffs.shape[1]
+    qpows = pows if nq == degree else _ext_power_table(zeta, nq, device)
+    return StarkOpeningSet(
+        trace_batch.eval_at_ext(pows),
+        trace_batch.eval_at_ext(pows_n),
+        zs_batch.eval_at_ext(pows),
+        zs_batch.eval_at_ext(pows_n),
+        gf.to_u64(z_values[num_permutation_zs:, -1]),
+        quotient_batch.eval_at_ext(qpows),
+    )
+
+
+# ---------------------------------------------------------------------------
+# FRI
+# ---------------------------------------------------------------------------
+
+
+def fri_pow_device(current_hash: list[int], fri_config, device) -> int:
+    """PoW grind (fri/prover.rs:126-148): batches of consecutive nonces
+    through one Poseidon launch each; the LOWEST valid nonce is the witness
+    (stark/fri.py fri_proof_of_work), whatever the batch size."""
+    device = torch.device(device)
+    pow_bits = fri_config.proof_of_work_bits
+    assert pow_bits <= 32
+    B = 1 << 18 if device.type == "cuda" else 1 << 10
+    hi_bound = 1 << (32 - pow_bits)
+    h = gf.from_u64(np.asarray(current_hash, dtype=np.uint64), device)
+    start = 0
+    while start + B <= 1 << 32:
+        state = torch.zeros((pos.WIDTH, B), dtype=torch.int64, device=device)
+        state[0:4] = h[:, None]
+        state[4] = torch.arange(start, start + B, dtype=torch.int64,
+                                device=device)
+        out0 = pos.permute(state)[0]
+        hits = torch.nonzero(((out0 >> 32) & gf.M32) < hi_bound)
+        if hits.numel():
+            return start + int(hits[0, 0])
+        start += B
+    raise RuntimeError("PoW grind exhausted u32 nonces")
+
+
+class _DeviceExtTree:
+    """FRI commit-phase tree over extension values (single device): the
+    values in bit-reversed order, `arity` consecutive values per leaf."""
+
+    def __init__(self, values: gfe.GFE, arity: int, cap_height: int):
+        n = values.shape[0]
+        perm = dntt.bitrev_perm(n, values.re.device)
+        self.values = gfe.GFE(values.re[perm], values.im[perm])
+        self.arity = arity
+        self.n_leaves = n // arity
+        self.cap_height = cap_height
+        # leaf words: re_0, im_0, re_1, im_1, ... as u64 columns
+        cols = torch.stack([self.values.re.reshape(self.n_leaves, arity),
+                            self.values.im.reshape(self.n_leaves, arity)],
+                           dim=-1).reshape(self.n_leaves, 2 * arity)
+        digs = dmerkle.leaf_digests(cols.T.contiguous())
+        self.levels, self.cap = build_tree_device(digs, cap_height)
+
+    def leaf_values(self, coset_indices: np.ndarray) -> np.ndarray:
+        """(k,) leaf indices -> host (k, arity, 2) u64 extension values."""
+        idx = torch.as_tensor(np.asarray(coset_indices, dtype=np.int64),
+                              device=self.values.re.device)
+        flat = (idx[:, None] * self.arity
+                + torch.arange(self.arity, device=idx.device)).reshape(-1)
+        out = gfe.to_u64_pair(self.values[flat])
+        return out.reshape(len(coset_indices), self.arity, 2)
+
+    def paths(self, coset_indices: np.ndarray):
+        num_path_levels = log2_strict(self.n_leaves) - self.cap_height
+        return dmerkle.paths_to_host(
+            gather_paths_dev(self.levels, coset_indices, num_path_levels))
+
+
+def _ext_scalar(v, device) -> gfe.GFE:
+    """Host extension value -> 0-dim GFE."""
+    v = ge.t(v)
+    return gfe.GFE(gf.scalar(v[0], device), gf.scalar(v[1], device))
+
+
+def prove_openings_device(instance, openings_batches, oracles, challenger,
+                          config, degree_bits) -> FriProof:
+    """PolynomialBatch::prove_openings + fri_proof (fri/oracle.rs:167-243,
+    fri/prover.rs:20-150), values first: over the LDE coset,
+    F(x) = x * sum_b alpha^{suffix_b} (C_b(x) - y_b) / (x - z_b), with
+    C_b = sum_i alpha^i p_i over the batch's resident LDE rows and
+    y_b = C_b(z_b) the alpha-reduction of the opened values. One coset iNTT
+    gives the coefficients to fold."""
+    device = oracles[0].lde.device
+    fri_config = config.fri_config
+    rate_bits = fri_config.rate_bits
+    alpha = ge.t(challenger.get_extension_challenge())
+    reduced = [_reduce_with_alpha(batch, alpha) for batch in openings_batches]
+
+    size_bits = degree_bits + rate_bits
+    n = 1 << size_bits
+    xs = gf.mul(gf.powers(g.primitive_root_of_unity(size_bits), n, device),
+                gf.scalar(g.MULTIPLICATIVE_GROUP_GENERATOR, device))
+
+    final = gfe.zeros((n,), device)
+    for batch, y in zip(instance.batches, reduced):
+        comp = gfe.zeros((n,), device)
+        pw = (1, 0)
+        for oi, pi in batch.polynomials:
+            term = gfe.mul_base(_ext_scalar(pw, device), oracles[oi].lde[pi])
+            comp = gfe.add(comp, term)
+            pw = ge.t_mul(pw, alpha)
+        num = gfe.sub(comp, _ext_scalar(y, device))
+        den = gfe.sub(gfe.from_base(xs), _ext_scalar(batch.point, device))
+        q = gfe.mul(num, gfe.inv(den))
+        # pw is now alpha^{len(batch)}: shift the earlier batches past it
+        final = gfe.add(gfe.mul(final, _ext_scalar(pw, device)), q)
+
+    # degree bump F <- X * F (plonky2 PR #436)
+    values = gfe.mul_base(final, xs)
+    c = dntt.coset_ifft(torch.stack([values.re, values.im]))
+    coeffs = gfe.GFE(c[0], c[1])
+    return fri_proof_device(oracles, coeffs, values, challenger, fri_config,
+                            degree_bits)
+
+
+def fri_fold(coeffs: gfe.GFE, beta, arity: int) -> gfe.GFE:
+    """One FRI fold (olavm_tpu/stark/prover_device.py:887-921): coeffs[k * arity + i] ->
+    sum_i coeffs[k * arity + i] * beta^i for a host extension beta. Plain
+    torch in this version (its products launch K3 on the card)."""
+    device = coeffs.re.device
+    re = coeffs.re.reshape(-1, arity)
+    im = coeffs.im.reshape(-1, arity)
+    acc = gfe.GFE(re[:, 0], im[:, 0])
+    bp = (1, 0)
+    for i in range(1, arity):
+        bp = ge.t_mul(bp, beta)
+        acc = gfe.add(acc, gfe.mul(gfe.GFE(re[:, i], im[:, i]),
+                                   _ext_scalar(bp, device)))
+    return acc
+
+
+def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
+                     challenger, config, degree_bits: int) -> FriProof:
+    """FRI commit phase (trees, folds, re-FFTs), final polynomial, PoW and
+    query gathers."""
+    from ..hash.hashers import BLAKE3
+
+    device = coeffs.re.device
+    arity_schedule = config.reduction_arity_bits(degree_bits)
+
+    trees: list[_DeviceExtTree] = []
+    shift = g.MULTIPLICATIVE_GROUP_GENERATOR
+    for arity_bits in arity_schedule:
+        arity = 1 << arity_bits
+        tree = _DeviceExtTree(values, arity, config.cap_height)
+        challenger.observe_cap(tree.cap, BLAKE3)
+        trees.append(tree)
+
+        beta = ge.t(challenger.get_extension_challenge())
+        coeffs = fri_fold(coeffs, beta, arity)
+        shift = pow(shift, arity, g.P)
+        v = dntt.coset_fft(torch.stack([coeffs.re, coeffs.im]), shift)
+        values = gfe.GFE(v[0], v[1])
+
+    final_len = coeffs.shape[0] >> config.rate_bits
+    final_coeffs = gfe.to_u64_pair(coeffs[:final_len])
+    for c in final_coeffs:
+        challenger.observe_extension_element(c)
+
+    pow_witness = fri_pow_device(challenger.get_hash(), config, device)
+
+    lde_n = 1 << (degree_bits + config.rate_bits)
+    query_indices = [
+        c % lde_n for c in challenger.get_n_challenges(config.num_query_rounds)
+    ]
+    k = len(query_indices)
+    leaves = [o.query_leaves(query_indices) for o in initial_oracles]
+    paths = [o.prove_batch(query_indices) for o in initial_oracles]
+    steps_eval, steps_path = [], []
+    xi = np.asarray(query_indices, dtype=np.int64)
+    for tree, arity_bits in zip(trees, arity_schedule):
+        coset = xi >> arity_bits
+        steps_eval.append(tree.leaf_values(coset))
+        steps_path.append(tree.paths(coset))
+        xi = coset
+
+    query_rounds = []
+    for qi in range(k):
+        initial = FriInitialTreeProof([
+            ([int(v) for v in leaves[o][qi]], paths[o][qi])
+            for o in range(len(initial_oracles))
+        ])
+        steps = [FriQueryStep(steps_eval[i][qi], steps_path[i][qi])
+                 for i in range(len(arity_schedule))]
+        query_rounds.append(FriQueryRound(initial, steps))
+
+    return FriProof(
+        commit_phase_merkle_caps=[t.cap for t in trees],
+        query_round_proofs=query_rounds,
+        final_poly=final_coeffs,
+        pow_witness=pow_witness,
+    )
+
+
+# ---------------------------------------------------------------------------
+# orchestration (the host prover's transcript, stark/prover.py)
+# ---------------------------------------------------------------------------
+
+
+def prove_single_table_device(stark, config, trace_values: torch.Tensor,
+                              trace_batch: DevicePolynomialBatch, ctl_data,
+                              challenger, timing) -> StarkProof:
+    degree = trace_values.shape[1]
+    degree_bits = log2_strict(degree)
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+    hasher = config.hasher()
+    total_arities = sum(config.fri_config.reduction_arity_bits(degree_bits))
+    assert total_arities <= degree_bits + rate_bits - cap_height
+
+    challenger.compact()
+
+    permutation_challenges = None
+    permutation_zs: list[torch.Tensor] = []
+    if stark.uses_permutation_args():
+        permutation_challenges = get_n_grand_product_challenge_sets(
+            challenger, config.num_challenges, stark.permutation_batch_size())
+        with timing.scope("permutation Z polys"):
+            permutation_zs = permutation_z_polys_device(
+                stark, config, trace_values, permutation_challenges)
+    num_permutation_zs = len(permutation_zs)
+
+    z_list = list(permutation_zs) + [zc.z for zc in ctl_data.zs_columns]
+    assert z_list, "No CTL?"
+    z_values = torch.stack(z_list)
+
+    with timing.scope("Z commitment"):
+        zs_batch = DevicePolynomialBatch.from_values(
+            z_values, rate_bits, cap_height, config.merkle_hasher)
+    challenger.observe_cap(zs_batch.cap, hasher)
+
+    alphas = challenger.get_n_challenges(config.num_challenges)
+
+    with timing.scope("compute quotient polys"):
+        quotient_coeffs = compute_quotient_polys_device(
+            stark, config, trace_batch, zs_batch, permutation_challenges,
+            ctl_data, alphas, degree_bits, num_permutation_zs)
+
+    with timing.scope("quotient commitment"):
+        quotient_batch = DevicePolynomialBatch.from_coeffs(
+            quotient_coeffs, rate_bits, cap_height, config.merkle_hasher)
+    challenger.observe_cap(quotient_batch.cap, hasher)
+
+    zeta = challenger.get_extension_challenge()
+    if ge.is_one(ge.exp_pow2(zeta, degree_bits)):
+        raise ValueError("opening point is in the subgroup")
+    gen = g.primitive_root_of_unity(degree_bits)
+
+    with timing.scope("openings"):
+        openings = _openings_device(trace_batch, zs_batch, quotient_batch,
+                                    z_values, zeta, gen, num_permutation_zs)
+
+    openings_batches = openings.to_fri_openings()
+    for batch in openings_batches:
+        challenger.observe_extension_elements(batch)
+
+    instance = fri_instance_for_stark(
+        stark, zeta, gen, degree_bits, len(ctl_data), config)
+
+    with timing.scope("FRI opening proof"):
+        opening_proof = prove_openings_device(
+            instance, openings_batches, [trace_batch, zs_batch, quotient_batch],
+            challenger, config, degree_bits)
+
+    caps = (trace_batch.cap, zs_batch.cap, quotient_batch.cap)
+    for b in (trace_batch, zs_batch, quotient_batch):
+        b.free()
+    return StarkProof(
+        trace_cap=caps[0],
+        permutation_ctl_zs_cap=caps[1],
+        quotient_polys_cap=caps[2],
+        openings=openings,
+        opening_proof=opening_proof,
+    )
+
+
+def prove_with_traces_device(ola_stark, config: StarkConfig,
+                             trace_poly_values: list[np.ndarray],
+                             public_values: PublicValues | None = None,
+                             timing: TimingTree | None = None, *,
+                             device) -> AllProof:
+    """Device analogue of prover.prove_with_traces: the same challenger
+    transcript, every heavy phase on `device`. trace_poly_values: per table
+    (num_cols, degree) uint64 host arrays."""
+    timing = timing or TimingTree()
+    device = torch.device(device)
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+    hasher = config.hasher()
+
+    with timing.scope("upload traces"):
+        values_dev = [gf.from_u64(t, device) for t in trace_poly_values]
+
+    with timing.scope("compute trace commitments"):
+        trace_batches = []
+        for ti, v in enumerate(values_dev):
+            logger.info("trace commit %d/%d shape=%s", ti + 1, len(values_dev),
+                        tuple(v.shape))
+            trace_batches.append(DevicePolynomialBatch.from_values(
+                v, rate_bits, cap_height, config.merkle_hasher))
+
+    challenger = Challenger()
+    for b in trace_batches:
+        challenger.observe_cap(b.cap, hasher)
+
+    with timing.scope("cross_table_lookup_data"):
+        ctl_data_per_table = ctl_data_device(
+            config, values_dev, ola_stark.cross_table_lookups, challenger)
+
+    stark_proofs = []
+    for idx, stark in enumerate(ola_stark.starks):
+        logger.info("prove table %d/%d (%s)", idx + 1, len(ola_stark.starks),
+                    type(stark).__name__)
+        with timing.scope(f"prove table {idx}"):
+            stark_proofs.append(prove_single_table_device(
+                stark, config, values_dev[idx], trace_batches[idx],
+                ctl_data_per_table[idx], challenger, timing))
+        # release what only this table needed
+        values_dev[idx] = None
+        ctl_data_per_table[idx] = None
+
+    return AllProof(
+        stark_proofs=stark_proofs,
+        compress_challenges=ola_stark.compress_challenges(),
+        public_values=public_values or PublicValues(),
+    )

@@ -1,0 +1,123 @@
+"""The port's blake3 and Merkle commitment (olavm_tpu_torch.hash.blake3,
+merkle/device.py, stark/oracle_device.py) against the official BLAKE3
+vectors, olavm_tpu's blake3 leaf hashing, the host PolynomialBatch and the
+JAX package's DevicePolynomialBatch: caps, coefficients, query leaves and
+paths must be equal. Covers the noop leaves (C <= 4), two-chunk leaves
+(C > 128, the 134-column Poseidon table), the 256-column limit and the empty
+paths of degree-2 tables."""
+
+import numpy as np
+import pytest
+import torch
+
+from olavm_tpu.field import extension as ge
+from olavm_tpu.field import gf as jgf
+from olavm_tpu.field import goldilocks as g
+from olavm_tpu.hash.blake3 import hash_leaves_np
+from olavm_tpu.hash.hashers import by_name
+from olavm_tpu.merkle.tree import MerkleTree
+from olavm_tpu.ntt import host as ntt_host
+from olavm_tpu.stark.oracle import PolynomialBatch
+from olavm_tpu.stark.oracle_device import (
+    DevicePolynomialBatch as JaxPolynomialBatch,
+)
+from olavm_tpu_torch import convert
+from olavm_tpu_torch.field import gfe
+from olavm_tpu_torch.hash import blake3 as tb3
+from olavm_tpu_torch.merkle import device as tmerkle
+from olavm_tpu_torch.stark.oracle_device import DevicePolynomialBatch
+
+
+def _blake3(data: bytes) -> bytes:
+    """BLAKE3 of one message of at most 64 bytes through the port's compress."""
+    block = np.frombuffer(data.ljust(64, b"\0"), dtype="<u4").astype(np.int64)
+    m = torch.from_numpy(block).reshape(16, 1)
+    out = tb3.compress(tb3.iv_lanes(1, "cpu"), m, len(data),
+                       tb3.CHUNK_START | tb3.CHUNK_END | tb3.ROOT)
+    return out[:, 0].numpy().astype("<u4").tobytes()
+
+
+def test_blake3_official_vectors():
+    assert _blake3(b"abc").hex() == (
+        "6437b3ac38465133ffb63b75273a8db548c558465d79db03fd359c6cd5bd9d85")
+    assert _blake3(b"\x00").hex() == (
+        "2d3adedff11b61f14c886e35afa036736dcd87a74d27b5c1510225d0f592e213")
+
+
+def _eval_at_ext_host(vals: np.ndarray, z: np.ndarray) -> list:
+    """Each column's polynomial (interpolated from its values) at the
+    extension point z, by Horner on the host."""
+    out = []
+    for coeffs in ntt_host.intt(vals):
+        acc = ge.from_base(0)
+        for c in reversed(coeffs.tolist()):
+            acc = ge.add(ge.mul(acc, z), ge.from_base(c))
+        out.append(ge.t(acc))
+    return out
+
+
+@pytest.mark.parametrize("C", [5, 8, 9, 16, 128, 129, 134, 256])
+def test_leaf_digests_match_reference(C):
+    rows = np.random.default_rng(C).integers(0, g.P, size=(7, C), dtype=np.uint64)
+    digs = tmerkle.leaf_digests(convert.from_u64(rows.T.copy(), "cpu"))
+    np.testing.assert_array_equal(tmerkle.digests_to_u64(digs),
+                                  hash_leaves_np(rows))
+
+
+def test_noop_leaves_and_width_limit():
+    rows = np.random.default_rng(0).integers(0, g.P, size=(5, 3), dtype=np.uint64)
+    digs = tmerkle.digests_to_u64(
+        tmerkle.leaf_digests(convert.from_u64(rows.T.copy(), "cpu")))
+    np.testing.assert_array_equal(digs[:, :3], rows)
+    assert not digs[:, 3].any()
+    with pytest.raises(ValueError):
+        tmerkle.leaf_digests(torch.zeros((257, 2), dtype=torch.int64))
+
+
+def test_compress_level_matches_reference():
+    digs = np.random.default_rng(1).integers(0, 1 << 63, size=(8, 4),
+                                             dtype=np.uint64)
+    words = np.stack([digs & np.uint64(0xFFFFFFFF), digs >> np.uint64(32)],
+                     axis=-1).reshape(8, 8).T.astype(np.int64)
+    parent = tmerkle.compress_level(torch.from_numpy(words.copy()))
+    np.testing.assert_array_equal(tmerkle.digests_to_u64(parent),
+                                  by_name("blake3").compress(digs[0::2],
+                                                             digs[1::2]))
+
+
+@pytest.mark.parametrize("C,logn", [(1, 5), (4, 4), (9, 6), (134, 3), (53, 1),
+                                    (26, 1)])
+def test_commit_matches_host_batch(C, logn):
+    vals = np.random.default_rng(C * 100 + logn).integers(
+        0, g.P, size=(C, 1 << logn), dtype=np.uint64)
+    host = PolynomialBatch.from_values(vals, 3, 4, by_name("blake3"))
+    port = DevicePolynomialBatch.from_values(convert.from_u64(vals, "cpu"), 3, 4)
+    np.testing.assert_array_equal(port.cap, host.cap)
+    np.testing.assert_array_equal(convert.to_u64(port.coeffs), host.polynomials)
+    size = 1 << (logn + 3)
+    idxs = [0, 1, 5, size - 1]
+    leaves = port.query_leaves(idxs)
+    proofs = port.prove_batch(idxs)
+    for i, x in enumerate(idxs):
+        hleaf, hproof = host.leaf_and_proof(x)
+        assert [int(v) for v in leaves[i]] == hleaf
+        assert proofs[i] == hproof
+        assert MerkleTree.verify(hleaf, x, port.cap, proofs[i],
+                                 hasher=by_name("blake3"))
+    if logn == 1:  # degree 2: the leaves are the cap, the paths are empty
+        assert all(p == [] for p in proofs)
+
+
+def test_commit_and_openings_match_jax_batch():
+    vals = np.random.default_rng(7).integers(0, g.P, size=(9, 16),
+                                             dtype=np.uint64)
+    ref = JaxPolynomialBatch.from_values(jgf.from_u64(vals), 3, 4, "blake3")
+    port = DevicePolynomialBatch.from_values(convert.from_u64(vals, "cpu"), 3, 4)
+    np.testing.assert_array_equal(port.cap, ref.cap)
+    idxs = [3, 77, 127]
+    np.testing.assert_array_equal(port.query_leaves(idxs), ref.query_leaves(idxs))
+    assert port.prove_batch(idxs) == ref.prove_batch(idxs)
+    z = np.array([123456789, g.P - 3], dtype=np.uint64)
+    pows = gfe.powers(gfe.from_u64_pair(z, "cpu"), 16)
+    want = [[int(v) for v in row] for row in _eval_at_ext_host(vals, z)]
+    assert port.eval_at_ext(pows).tolist() == want
