@@ -9,8 +9,9 @@ without printing a result:
 1. environment: the card's name and power limit; build every kernel of
    olavm_tpu_torch/csrc with nvcc (one process per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, bit-exact
-   (tolerance 0: every value is exact field arithmetic), with CUDA-event
-   times of both;
+   (tolerance 0: every value is exact field or hash arithmetic), with
+   CUDA-event times of both and the least time the card could take for the
+   same work (`bound_ms`, from the shapes of this run);
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card must serialize to the sha256 and length of the golden that
    olavm_tpu's host prover produced, and the port's verifier must accept it;
@@ -19,8 +20,10 @@ without printing a result:
    verify_proof, with every kernel's launch count reset just before and read
    just after; each kernel must have been launched.
 
-The last lines are the `kernels` JSON line, the card's nvidia-smi line and
-the result line {"ok": true, "device": {...}}. A longer report goes to
+At the end neither jax nor any module of olavm_tpu may have been loaded. The
+last lines are the full-size run's seconds, peak memory and launch counts,
+the `kernels` JSON line, the card's nvidia-smi line and the result line
+{"ok": true, "device": {...}}. A longer report goes to
 chip_smoke_out/report.json.
 """
 
@@ -40,6 +43,46 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 REPORT_DIR = os.path.join(ROOT, "chip_smoke_out")
 FULL_N = 94000  # 1,034,005 steps -> 2^20 CPU rows
 SEED = 0  # random kernel inputs
+
+# The card's peaks for `bound_ms` (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
+# device memory, and 67 TFLOP/s of float32 outside the tensor cores, which is
+# 128 lanes per SM doing one 2-flop multiply-add per clock. 32-bit integer
+# instructions issue on 64 lanes per SM, one operation each: a quarter of the
+# float32 figure.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 67e12 / 4
+# 32-bit integer operations that one Goldilocks operation needs, operands
+# being two 32-bit words: a general 64x64->128 product is 4 multiply-adds of
+# 32x32->64 with their carries and the reduction of 128 bits is ~10 more; an
+# add or a sub is a 2-word add, a compare and a 2-word correction
+OPS_MUL, OPS_ADD = 20, 6
+# one blake3 compression: 7 rounds x 8 G x (4 adds, two of them of three
+# terms, which the card does as one instruction, + 4 xors + 4 rotates), and 8
+# xors for the truncated output
+OPS_BLAKE3 = 7 * 8 * 12 + 8
+# One Poseidon permutation, counted by what the function needs and not by how
+# csrc/poseidon.cu codes it (its MDS rows go through the general multiply).
+# The MDS entries are constants of at most 41 (6 bits), so an output of the
+# MDS layer is 12 multiply-adds of constant x low word and 12 of constant x
+# high word into two 64-bit sums below 2^42, and one reduction of
+# lo + hi * 2^32 (below 2^74: split hi, fold 2^64 = 2^32 - 1, two 2-word
+# adds with carry, one correction; ~11). Row 0 has the diagonal's 8 as a 13th
+# entry (2 more multiply-adds).
+OPS_MDS_OUTPUT = 2 * 12 + 11  # 35, against 13 * 20 + 12 * 6 = 332 in general
+OPS_MDS_LAYER = 12 * OPS_MDS_OUTPUT + 2  # 422
+# a full round: 12 constant adds, 12 x^7 of 4 general products, the MDS layer
+OPS_FULL_ROUND = 12 * OPS_ADD + 12 * 4 * OPS_MUL + OPS_MDS_LAYER  # 1454
+# before the partial rounds: 12 constant adds and the dense 11x11 matrix of
+# full-size constants (121 general products, 10 adds per output)
+OPS_PARTIAL_ENTRY = 12 * OPS_ADD + 121 * OPS_MUL + 110 * OPS_ADD  # 3152
+# a partial round: one x^7, one constant add, 25 * s0 as a small constant (2
+# multiply-adds and the reduction), 11 products and adds with W_HATS into
+# word 0 and 11 products and adds with VS into the others
+OPS_PARTIAL_ROUND = (4 * OPS_MUL + OPS_ADD + (2 + 11)
+                     + 22 * OPS_MUL + 22 * OPS_ADD)  # 671
+# 8 full rounds, 22 partial rounds (the last adds no constant): 29,540
+OPS_POSEIDON = (8 * OPS_FULL_ROUND + OPS_PARTIAL_ENTRY
+                + 22 * OPS_PARTIAL_ROUND - OPS_ADD)
 
 
 def log(*args):
@@ -85,6 +128,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, int_ops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory's rate, or the 32-bit integer
+    operations at their issue rate, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "int32_ops": int_ops}
+
+
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over the canonical values; 0 when bit-exact."""
     import numpy as np
@@ -105,20 +159,30 @@ def check_kernels(device, rng) -> dict:
     import numpy as np
     import torch
 
+    from olavm_tpu_torch import kernels
     from olavm_tpu_torch.field import gf
     from olavm_tpu_torch.hash import poseidon as pos
+    from olavm_tpu_torch.merkle import device as dmerkle
     from olavm_tpu_torch.ntt import ntt as dntt
 
     def rand(shape):
         return gf.from_u64(rng.integers(0, gf.P, shape, dtype=np.uint64), device)
 
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+
+    def rand_on_card(shape, high=1 << 62):
+        # canonical values made on the card, for the shapes too large to make
+        # on the host in reasonable time
+        return torch.randint(0, high, shape, generator=gen, device=device)
+
     results = {}
 
-    def record(name, err, ms, plain_ms, detail):
+    def record(name, err, ms, plain_ms, least, detail):
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "checked": detail}
+                         **least, "library_ms": None, "checked": detail}
         log(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms ({detail})")
+            f"plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({detail})")
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
@@ -132,9 +196,9 @@ def check_kernels(device, rng) -> dict:
     a, b = gf.from_u64(av, device), gf.from_u64(bv, device)
     grid = gf.from_u64(np.repeat(edge, 5), device)
     grid_t = gf.from_u64(np.tile(edge, 5), device)
-    for name, fn, plain in (("gf_mul", gf.mul, gf.mul_plain),
-                            ("gf_add", gf.add, gf.add_plain),
-                            ("gf_sub", gf.sub, gf.sub_plain)):
+    for name, fn, plain, ops in (("gf_mul", gf.mul, gf.mul_plain, OPS_MUL),
+                                 ("gf_add", gf.add, gf.add_plain, OPS_ADD),
+                                 ("gf_sub", gf.sub, gf.sub_plain, OPS_ADD)):
         err = max_abs_err(fn(a, b), plain(a, b))
         err = max(err, max_abs_err(fn(grid, grid_t), plain(grid, grid_t)))
         for v in edge:
@@ -143,27 +207,48 @@ def check_kernels(device, rng) -> dict:
                       max_abs_err(fn(s, b), plain(s, b)))
         ms = cuda_ms(lambda: fn(a, b), 20)
         plain_ms = cuda_ms(lambda: plain(a, b), 5)
-        record(name, err, ms, plain_ms,
+        record(name, err, ms, plain_ms, bound(24 * n, ops * n),
                "2^24 elements, edge grid, 0-dim operand on each side")
     del a, b
 
-    # K1: forward and inverse at the commit shapes and the smallest sizes;
-    # (18, 2^24) is ProgramStark's x8 LDE, the largest n of the main path
+    # K1: forward and inverse at every log n from 1 to 24 at a small batch (so
+    # every split of the stages into passes runs, with blocks whose last
+    # columns are empty), then at the commit shapes; (18, 2^24) is
+    # ProgramStark's x8 LDE, the largest n of the main path
     err = 0
     times = {}
-    for shape in ((3, 2), (3, 4), (5, 1024), (94, 1 << 20), (16, 1 << 23),
-                  (18, 1 << 24)):
-        x = rand(shape)
+    passes = {}
+    shapes = [(3 if k <= 20 else 1, 1 << k) for k in range(1, 25)]
+    shapes += [(5, 1024), (134, 1024), (94, 1 << 20), (16, 1 << 23),
+               (18, 1 << 24)]
+    for shape in shapes:
+        log_n = shape[1].bit_length() - 1
+        passes[log_n] = kernels.lib("ntt").gl_ntt_passes(log_n)
+        x = rand(shape) if shape[0] * shape[1] <= 1 << 22 else rand_on_card(shape)
         for inverse in (False, True):
             err = max(err, max_abs_err(dntt._ntt_cuda(x, inverse),
                                        dntt.ntt_plain(x, inverse)))
         if shape == (16, 1 << 23):
-            times["ms"] = cuda_ms(lambda: dntt._ntt_cuda(x, False), 5)
+            times["ms"] = cuda_ms(lambda: dntt._ntt_cuda(x, False), 10)
             times["plain_ms"] = cuda_ms(lambda: dntt.ntt_plain(x, False), 2)
+            count = shape[0] * shape[1]
+            # the array in and out and the n/2 twiddles; one add and one sub
+            # per butterfly, and one multiply except where the twiddle is 1:
+            # the first butterfly of every group, n - 1 of a row's
+            # (n / 2) log n
+            butterflies = (count // 2) * log_n
+            products = butterflies - shape[0] * (shape[1] - 1)
+            times["least"] = bound(
+                16 * count + 4 * shape[1],
+                butterflies * 2 * OPS_ADD + products * OPS_MUL)
         del x
-    record("ntt", err, times["ms"], times["plain_ms"],
-           "forward+inverse at (3,2) (3,4) (5,1024) (94,2^20) (16,2^23) "
-           "(18,2^24); times at (16,2^23)")
+    want = {k: 1 if k <= 13 else 2 if k <= 20 else 3 for k in passes}
+    if passes != want:
+        raise AssertionError(f"ntt launches per transform {passes}, not {want}")
+    results["ntt_launches_per_transform"] = passes
+    record("ntt", err, times["ms"], times["plain_ms"], times["least"],
+           "forward+inverse at (3,2^k) k=1..20, (1,2^k) k=21..24, (5,1024) "
+           "(134,1024) (94,2^20) (16,2^23) (18,2^24); times at (16,2^23)")
 
     # K2: the PoW grind's batch, plus host numpy parity
     st = rand((pos.WIDTH, 1 << 18))
@@ -175,8 +260,45 @@ def check_kernels(device, rng) -> dict:
     ms = cuda_ms(lambda: pos.permute(st), 20)
     plain_ms = cuda_ms(lambda: pos.permute_plain(st), 3)
     record("poseidon", err, ms, plain_ms,
+           bound(2 * 8 * pos.WIDTH * (1 << 18), OPS_POSEIDON * (1 << 18)),
            "(12,2^18) vs plain; 64 states vs permute_np")
     del st
+
+    # K4: leaf digests at every block structure (noop leaves, a partial last
+    # block, exactly one chunk, two chunks, the 256-column limit), then the
+    # CpuStark LDE's shape with times
+    err = 0
+    widths = (1, 4, 5, 8, 9, 18, 29, 32, 94, 128, 129, 134, 256)
+    for C in widths:
+        cols = rand((C, 1000))
+        got = dmerkle.leaf_digests(cols)
+        plain = (dmerkle.leaf_digests_plain(cols) if C > dmerkle.NOOP_MAX
+                 else dmerkle.leaf_digests(cols.cpu()).to(device))
+        err = max(err, max_abs_err(got, plain))
+    C, n = 94, 1 << 23
+    lde = rand_on_card((C, n))
+    digs = dmerkle.leaf_digests(lde)
+    err = max(err, max_abs_err(digs, dmerkle.leaf_digests_plain(lde)))
+    ms = cuda_ms(lambda: dmerkle.leaf_digests(lde), 5)
+    plain_ms = cuda_ms(lambda: dmerkle.leaf_digests_plain(lde), 1)
+    compressions = (C + 7) // 8 + (1 if C > dmerkle.CHUNK_COLS else 0)
+    record("blake3_leaves", err, ms, plain_ms,
+           bound(8 * C * n + 64 * n, OPS_BLAKE3 * compressions * n),
+           f"C in {widths} at n=1000; (94,2^23) with times")
+    del lde
+
+    # K4: one tree level over those digests, 2^23 -> 2^22, and the smallest
+    err = max_abs_err(dmerkle.compress_level(digs),
+                      dmerkle.compress_level_plain(digs))
+    small = rand_on_card((8, 2), 1 << 32)
+    err = max(err, max_abs_err(dmerkle.compress_level(small),
+                               dmerkle.compress_level_plain(small)))
+    ms = cuda_ms(lambda: dmerkle.compress_level(digs), 10)
+    plain_ms = cuda_ms(lambda: dmerkle.compress_level_plain(digs), 3)
+    record("blake3_level", err, ms, plain_ms,
+           bound(64 * n + 32 * n, OPS_BLAKE3 * (n // 2)),
+           "(8,2) and (8,2^23) -> (8,2^22); times at 2^23")
+    del digs
     torch.cuda.synchronize()
     return results
 
@@ -189,7 +311,6 @@ def time_plain_steps(device, rng) -> dict:
 
     from olavm_tpu_torch.field import gf
     from olavm_tpu_torch.field import gfe
-    from olavm_tpu_torch.merkle import device as dmerkle
     from olavm_tpu_torch.stark.prover_device import fri_fold
 
     gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
@@ -199,13 +320,6 @@ def time_plain_steps(device, rng) -> dict:
         return torch.randint(0, 1 << 62, shape, generator=gen, device=device)
 
     out = {}
-    lde = rand((94, 1 << 23))
-    out["blake3_leaves (94,2^23)"] = cuda_ms(lambda: dmerkle.leaf_digests(lde), 1)
-    digs = dmerkle.leaf_digests(lde)
-    del lde
-    out["blake3_level 2^23->2^22"] = cuda_ms(
-        lambda: dmerkle.compress_level(digs), 3)
-    del digs
     z = rand((1 << 21,))
     out["prefix_prod 2^21"] = cuda_ms(lambda: gf.prefix_prod(z), 3)
     del z
@@ -222,20 +336,17 @@ def time_plain_steps(device, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main_path(n: int, device, workdir: str):
-    """run_program_fast -> generate_traces_fast -> prove_with_traces_device
-    -> verify_proof on the fib-loop fixture; returns (proof bytes, report)."""
+def prepare(n: int, workdir: str):
+    """Execute the fib-loop fixture at N=n and generate its traces. Returns
+    (prove, report, (ola, config)): prove(device, timing=None) runs
+    prove_with_traces_device on those traces, ends with a synchronize and
+    returns (proof, seconds); report holds the sizes and the seconds so far."""
     import torch
 
     from olavm_tpu_torch.runtime.harness import run_program_fast
     from olavm_tpu_torch.stark.config import StarkConfig
     from olavm_tpu_torch.stark.proof import PublicValues
-    from olavm_tpu_torch.stark.prover_device import (
-        TimingTree,
-        prove_with_traces_device,
-    )
-    from olavm_tpu_torch.stark.serialization import serialize_all_proof
-    from olavm_tpu_torch.stark.verifier import verify_proof
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
     from olavm_tpu_torch.tables.fast_gen import generate_traces_fast
     from olavm_tpu_torch.tables.ola_stark import OlaStark
 
@@ -249,19 +360,43 @@ def main_path(n: int, device, workdir: str):
     t0 = time.perf_counter()
     traces = generate_traces_fast(fast_run, program, ola, process)
     seconds["trace_gen"] = time.perf_counter() - t0
-    shapes = [list(t.shape) for t in traces]
     pre, post = program.trace.start_end_roots
     public_values = PublicValues(tuple(pre), tuple(post), 0)
     config = StarkConfig.standard_fast_config()
 
+    def prove(device, timing=None):
+        t0 = time.perf_counter()
+        proof = prove_with_traces_device(ola, config, traces,
+                                         public_values=public_values,
+                                         timing=timing, device=device)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    report = {
+        "N": n,
+        "steps": int(fast_run.cpu.shape[0]),
+        "table_shapes": [list(t.shape) for t in traces],
+        "public_values": {"pre_root": [int(x) for x in pre],
+                          "post_root": [int(x) for x in post]},
+        "seconds": seconds,
+    }
+    return prove, report, (ola, config)
+
+
+def main_path(n: int, device, workdir: str):
+    """run_program_fast -> generate_traces_fast -> prove_with_traces_device
+    -> verify_proof on the fib-loop fixture; returns (proof bytes, report)."""
+    import torch
+
+    from olavm_tpu_torch.stark.prover_device import TimingTree
+    from olavm_tpu_torch.stark.serialization import serialize_all_proof
+    from olavm_tpu_torch.stark.verifier import verify_proof
+
+    prove, report, (ola, config) = prepare(n, workdir)
+    seconds = report["seconds"]
     torch.cuda.reset_peak_memory_stats()
     timing = TimingTree()
-    t0 = time.perf_counter()
-    proof = prove_with_traces_device(ola, config, traces,
-                                     public_values=public_values,
-                                     timing=timing, device=device)
-    torch.cuda.synchronize()
-    seconds["prove"] = time.perf_counter() - t0
+    proof, seconds["prove"] = prove(device, timing)
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -269,18 +404,12 @@ def main_path(n: int, device, workdir: str):
     seconds["verify"] = time.perf_counter() - t0
 
     data = serialize_all_proof(proof)
-    report = {
-        "N": n,
-        "steps": int(fast_run.cpu.shape[0]),
-        "table_shapes": shapes,
-        "public_values": {"pre_root": [int(x) for x in pre],
-                          "post_root": [int(x) for x in post]},
-        "seconds": seconds,
+    report.update({
         "peak_memory_bytes": int(peak),
         "proof_bytes": len(data),
         "proof_sha256": hashlib.sha256(data).hexdigest(),
         "prove_scopes": [[d, name, s] for d, name, s in timing.records],
-    }
+    })
     return data, report
 
 
@@ -296,6 +425,10 @@ KERNELS = (
      "olavm_tpu/field/gf.py:89", ("gf_add",)),
     ("gf_sub", "cuda", "olavm_tpu_torch/csrc/gf_mul.cu",
      "olavm_tpu/field/gf.py:104", ("gf_sub",)),
+    ("blake3_leaves", "cuda", "olavm_tpu_torch/csrc/blake3.cu",
+     "olavm_tpu/merkle/device.py:106", ("blake3_leaves",)),
+    ("blake3_level", "cuda", "olavm_tpu_torch/csrc/blake3.cu",
+     "olavm_tpu/hash/blake3.py:152", ("blake3_level",)),
 )
 
 
@@ -322,6 +455,14 @@ def run() -> int:
     built = kernels.build(force=True)
     report["build_seconds"] = time.perf_counter() - t0
     log(f"[1] built {sorted(built)} in {report['build_seconds']:.1f} s")
+    # registers, shared memory and spills of every kernel, as ptxas reports them
+    report["ptxas"] = {
+        name: [ln for ln in text.splitlines()
+               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        for name, text in kernels.BUILD_LOG.items()}
+    for name, lines in sorted(report["ptxas"].items()):
+        for ln in lines:
+            log(f"    {name}: {ln.strip()}")
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(SEED)
@@ -364,19 +505,26 @@ def run() -> int:
     jax_after = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
     if jax_after - jax_before:
         raise AssertionError(f"the port imported {sorted(jax_after - jax_before)}")
+    reference = sorted(m for m in sys.modules if m.split(".")[0] == "olavm_tpu")
+    if reference:
+        raise AssertionError(f"the port imported {reference}")
 
     kernel_line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(launches[c] for c in counters),
-         "max_abs_err": report["kernels"][name]["max_abs_err"],
-         "ms": report["kernels"][name]["ms"],
-         "plain_ms": report["kernels"][name]["plain_ms"]}
+         **{key: report["kernels"][name][key]
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}}
         for name, route, source, replaces, counters in KERNELS]}
     report["card"] = smi
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
 
+    print(json.dumps({"full_size": {
+        "N": FULL_N, "seconds": full["seconds"],
+        "peak_memory_bytes": full["peak_memory_bytes"],
+        "launches": launches, "proof_sha256": full["proof_sha256"]}}))
     print(json.dumps(kernel_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from olavm_tpu.field import goldilocks as g
+from ..field import goldilocks as g
 
 from .. import kernels
 

@@ -119,7 +119,7 @@ class KeccakHasher:
 
     @staticmethod
     def hash_leaves(leaves: np.ndarray) -> np.ndarray:
-        from olavm_tpu.hash import keccak as kk
+        from ..hash import keccak as kk
 
         n = leaves.shape[0]
         data = np.ascontiguousarray(
@@ -131,7 +131,7 @@ class KeccakHasher:
 
     @staticmethod
     def compress(left: np.ndarray, right: np.ndarray) -> np.ndarray:
-        from olavm_tpu.hash import keccak as kk
+        from ..hash import keccak as kk
 
         m = left.shape[0]
         data = np.concatenate(
@@ -157,7 +157,7 @@ class KeccakHasher:
 
     @staticmethod
     def hash_no_pad(data) -> list[int]:
-        from olavm_tpu.hash import keccak as kk
+        from ..hash import keccak as kk
 
         buf = np.asarray(list(data), dtype="<u8").view(np.uint8)
         return [

@@ -9,8 +9,9 @@ Two parts:
   `permute_plain`, which follows permute_stacked_gf_unrolled
   (olavm_tpu/hash/poseidon.py:417-468) with the plain field ops.
 
-The round and MDS constants are read from the reference package's
-poseidon_constants.json (required bit for bit for proof compatibility).
+The round and MDS constants are read from poseidon_constants.json beside this
+module, a copy of olavm_tpu/hash/poseidon_constants.json (required bit for
+bit for proof compatibility).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from olavm_tpu.field import goldilocks as g
+from ..field import goldilocks as g
 
 from .. import kernels
 from ..field import gf
@@ -34,7 +35,7 @@ HALF_N_FULL_ROUNDS = 4
 N_PARTIAL_ROUNDS = 22
 
 _C = json.loads(
-    files("olavm_tpu.hash").joinpath("poseidon_constants.json").read_text())
+    files("olavm_tpu_torch.hash").joinpath("poseidon_constants.json").read_text())
 
 ALL_ROUND_CONSTANTS = _C["ALL_ROUND_CONSTANTS"]  # 360
 MDS_CIRC = _C["MDS_MATRIX_CIRC"]  # 12, small ints

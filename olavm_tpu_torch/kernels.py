@@ -26,12 +26,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gf_mul", "ntt", "poseidon")
+SOURCES = ("blake3", "gf_mul", "ntt", "poseidon")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0}
+LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
+            "blake3_leaves": 0, "blake3_level": 0}
+
+# source name -> what nvcc printed when it was last built here (ptxas -v:
+# registers, shared memory and spills of every kernel)
+BUILD_LOG: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -41,12 +46,17 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 # C signatures of every entry point, by library
 _SIGNATURES = {
+    "blake3": {
+        "gl_blake3_leaves": [_VP, _VP, _I64, _INT, _VP],
+        "gl_blake3_level": [_VP, _VP, _I64, _VP],
+    },
     "gf_mul": {
         "gl_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
         "gl_add": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
         "gl_sub": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
     },
-    "ntt": {"gl_ntt": [_VP, _VP, _VP, _I64, _INT, _VP]},
+    "ntt": {"gl_ntt": [_VP, _VP, _VP, _I64, _INT, _VP],
+            "gl_ntt_passes": [_INT]},
     "poseidon": {
         "gl_poseidon_init": [_VP] * 8,
         "gl_poseidon_permute": [_VP, _VP, _I64, _VP],
@@ -103,8 +113,9 @@ def build(names=SOURCES, force: bool = False) -> dict:
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = out.decode(errors="replace")
         if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed:\n{out.decode(errors='replace')}")
+            errors.append(f"nvcc {name}.cu failed:\n{BUILD_LOG[name]}")
             continue
         os.replace(tmp, _lib_path(name))
     if errors:

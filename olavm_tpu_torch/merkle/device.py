@@ -9,8 +9,10 @@ values, with a fresh chunk every 128 columns and one parent compression for
 two-chunk leaves (the chunk tree of olavm_tpu/stark/oracle_device.py:198-240).
 Leaves of <= 4 elements are their own zero-padded digests (hash_or_noop).
 
-Plain torch in this version: a hand-written kernel for the leaf absorb and
-tree levels is later work.
+On CUDA tensors `leaf_digests` and `compress_level` launch the K4 kernels
+(csrc/blake3.cu): one thread per leaf, or per parent. On CPU tensors their
+plain versions run, `leaf_digests_plain` and `compress_level_plain`, chains
+of int64 torch ops over hash/blake3.py's `compress`.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..hash import blake3 as b3
 
 M32 = 0xFFFFFFFF
@@ -67,6 +70,23 @@ def leaf_digests(cols: torch.Tensor) -> torch.Tensor:
         return _words(torch.cat([cols, cols.new_zeros(4 - C, n)]))[:8]
     if C > 2 * CHUNK_COLS:
         raise ValueError(f"leaves over {2 * CHUNK_COLS} columns not supported")
+    if cols.device.type != "cuda":
+        return leaf_digests_plain(cols)
+    kernels.require_cuda_int64(cols)
+    out = torch.empty((8, n), dtype=torch.int64, device=cols.device)
+    if n == 0:
+        return out
+    rc = kernels.lib("blake3").gl_blake3_leaves(
+        cols.data_ptr(), out.data_ptr(), n, C, kernels.stream_ptr(cols))
+    kernels.check(rc, "blake3_leaves")
+    kernels.LAUNCHES["blake3_leaves"] += 1
+    return out
+
+
+def leaf_digests_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Plain version of the leaf kernel: 4 < C <= 256 columns, absorbed one
+    64-byte block at a time."""
+    C, n = cols.shape
     flags, blen, counter = absorb_block_meta(C)
     chunk_cvs = []
     cv = b3.iv_lanes(n, cols.device)
@@ -85,6 +105,25 @@ def leaf_digests(cols: torch.Tensor) -> torch.Tensor:
 
 def compress_level(digests: torch.Tensor) -> torch.Tensor:
     """One tree level: pairs (2i, 2i+1) of (8, n) digests -> (8, n/2)."""
+    if digests.device.type != "cuda":
+        return compress_level_plain(digests)
+    kernels.require_cuda_int64(digests)
+    n = digests.shape[1]
+    if digests.shape[0] != 8 or n < 2 or n % 2:
+        raise ValueError(f"digest level must be (8, even n), got "
+                         f"{tuple(digests.shape)}")
+    if digests.data_ptr() % 16:
+        raise ValueError("digest level must be 16-byte aligned")
+    out = torch.empty((8, n // 2), dtype=torch.int64, device=digests.device)
+    rc = kernels.lib("blake3").gl_blake3_level(
+        digests.data_ptr(), out.data_ptr(), n, kernels.stream_ptr(digests))
+    kernels.check(rc, "blake3_level")
+    kernels.LAUNCHES["blake3_level"] += 1
+    return out
+
+
+def compress_level_plain(digests: torch.Tensor) -> torch.Tensor:
+    """Plain version of the level kernel."""
     return b3.two_to_one_words(digests[:, 0::2], digests[:, 1::2])
 
 

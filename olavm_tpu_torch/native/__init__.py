@@ -1,9 +1,7 @@
-"""Carried from olavm_tpu/native/__init__.py: the card has no jax, and the
-original reads the Poseidon constants through olavm_tpu.hash.poseidon, which
-imports it. This copy reads them through the port's hash/poseidon, compiles
-the original's C++ source (olavm_tpu/native/gl_poseidon.cpp) into a library
-beside itself, and builds into a temporary file that is renamed into place, so
-that concurrent first imports do not load a half-written library. Its code is
+"""Carried from olavm_tpu/native/__init__.py: the original reads the Poseidon
+constants through olavm_tpu.hash.poseidon, which imports jax. This copy reads
+them through the port's hash/poseidon and compiles the port's own copy of the
+C++ source (native/gl_poseidon.cpp) through hostlib.build. Its code is
 otherwise unchanged.
 
 ctypes bindings for the native Goldilocks/Poseidon kernels.
@@ -16,25 +14,13 @@ injects the Poseidon constants. Falls back gracefully: callers should check
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "olavm_tpu",
-                    "native", "gl_poseidon.cpp")
-_LIB = os.path.join(_HERE, "libgl_poseidon.so")
+from . import hostlib
 
 available = False
 _lib = None
-
-
-def _build():
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, _LIB)
 
 
 def _u64p(arr):
@@ -43,9 +29,7 @@ def _u64p(arr):
 
 def _load():
     global _lib, available
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        _build()
-    lib = ctypes.CDLL(_LIB)
+    lib = ctypes.CDLL(hostlib.build("gl_poseidon"))
     u64p = ctypes.POINTER(ctypes.c_uint64)
     lib.init_poseidon.argtypes = [u64p] * 8
     lib.permute_batch.argtypes = [u64p, ctypes.c_uint64]

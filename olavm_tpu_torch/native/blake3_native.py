@@ -1,23 +1,16 @@
-"""Carried from olavm_tpu/native/blake3_native.py, so that loading it does not
-run olavm_tpu/native/__init__.py (which imports jax through
-olavm_tpu.hash.poseidon). It compiles the original's C++ source
-(olavm_tpu/native/gl_blake3.cpp) into a library beside itself, through a
-temporary file renamed into place; its code is otherwise unchanged.
+"""Carried from olavm_tpu/native/blake3_native.py. It compiles the port's own
+copy of the C++ source (native/gl_blake3.cpp) through hostlib.build; its code
+is otherwise unchanged.
 
 ctypes loader for the native BLAKE3 kernels (gl_blake3.cpp)."""
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "olavm_tpu",
-                    "native", "gl_blake3.cpp")
-_LIB = os.path.join(_HERE, "libgl_blake3.so")
+from . import hostlib
 
 available = False
 _lib = None
@@ -29,15 +22,7 @@ def _u64p(arr):
 
 def _load():
     global _lib, available
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-             _SRC, "-o", tmp],
-            check=True, capture_output=True,
-        )
-        os.replace(tmp, _LIB)
-    lib = ctypes.CDLL(_LIB)
+    lib = ctypes.CDLL(hostlib.build("gl_blake3", pthread=True))
     u64p = ctypes.POINTER(ctypes.c_uint64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.blake3_hash.argtypes = [u8p, ctypes.c_uint64, u8p]
@@ -54,14 +39,14 @@ except Exception as _e:  # pragma: no cover
 
     warnings.warn(
         f"native gl_blake3 unavailable ({_e}); falling back to the "
-        "vectorized-numpy BLAKE3 (olavm_tpu.hash.blake3) — slower but "
+        "vectorized-numpy BLAKE3 (hash/blake3.py) — slower but "
         "bit-identical"
     )
 
 
 def blake3_hash(data: bytes) -> bytes:
     if _lib is None:
-        from olavm_tpu.hash.blake3 import blake3_hash_np
+        from ..hash.blake3 import blake3_hash_np
 
         return blake3_hash_np(data)
     buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data) if data else (
@@ -74,7 +59,7 @@ def blake3_hash(data: bytes) -> bytes:
 def hash_leaves(leaves: np.ndarray) -> np.ndarray:
     """(n, width) u64 rows -> (n, 4) u64-word digests."""
     if _lib is None:
-        from olavm_tpu.hash.blake3 import hash_leaves_np
+        from ..hash.blake3 import hash_leaves_np
 
         return hash_leaves_np(leaves)
     leaves = np.ascontiguousarray(leaves, dtype=np.uint64)
@@ -86,7 +71,7 @@ def hash_leaves(leaves: np.ndarray) -> np.ndarray:
 
 def compress_batch(left: np.ndarray, right: np.ndarray) -> np.ndarray:
     if _lib is None:
-        from olavm_tpu.hash.blake3 import compress_batch_np
+        from ..hash.blake3 import compress_batch_np
 
         return compress_batch_np(left, right)
     left = np.ascontiguousarray(left, dtype=np.uint64)

@@ -7,9 +7,10 @@ applies 1/n after the transform; `coset_lde` evaluates on shift * H' with
 |H'| = n << rate_bits.
 
 On a CUDA tensor every transform with n >= 2 launches K1 (csrc/ntt.cu): one
-bit-reversal pass, then one launch per radix-2 stage. On a CPU tensor the
-plain version runs: the radix-2 ladder of olavm_tpu/ntt/ntt.py:89-136 with
-the plain field ops.
+to three passes that each run several radix-2 stages in shared memory, the
+bit reversal folded into the first pass's load. On a CPU tensor the plain
+version runs: the radix-2 ladder of olavm_tpu/ntt/ntt.py:89-136 with the
+plain field ops.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from olavm_tpu.field import goldilocks as g
-from olavm_tpu.utils.bits import bit_reversal_perm, log2_strict
+from ..field import goldilocks as g
+from ..utils.bits import bit_reversal_perm, log2_strict
 
 from .. import kernels
 from ..field import gf
@@ -66,6 +67,7 @@ def _ntt_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     x = x.contiguous()
     tw = twiddles(log_n, inverse, x.device)
     kernels.require_cuda_int64(x, tw)
+    # a fresh output: the kernel's first pass must not write what it reads
     out = torch.empty_like(x)
     batch = x.numel() // n
     if batch == 0:

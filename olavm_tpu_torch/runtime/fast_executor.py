@@ -1,5 +1,6 @@
-"""Carried from olavm_tpu/runtime/fast_executor.py: the card has no jax, so this copy imports
-only jax-free modules; its code is unchanged.
+"""Carried from olavm_tpu/runtime/fast_executor.py; it compiles the port's own
+copy of the executor source (native/gl_executor.cpp) through hostlib.build, and
+its code is otherwise unchanged.
 
 Fast executor front-end: drives the native interpreter
 (native/gl_executor.cpp) for plain-opcode programs and exports column-major
@@ -17,29 +18,21 @@ slow path records), then resumes.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from dataclasses import dataclass, field as dfield
 
 import numpy as np
 
-from olavm_tpu.field import goldilocks as g
-from olavm_tpu.interpreter.prophet import HEAP_PTR, ProphetInterpreter
-from olavm_tpu.isa.opcodes import Opcode
-from olavm_tpu.runtime.memory import HP_START_ADDR, PSP_START_ADDR
+from ..field import goldilocks as g
+from ..interpreter.prophet import HEAP_PTR, ProphetInterpreter
+from ..isa.opcodes import Opcode
+from ..native import hostlib
+from ..runtime.memory import HP_START_ADDR, PSP_START_ADDR
 from .process import (
     PROPHET_INPUT_FP_START_OFFSET,
     PROPHET_INPUT_REG_CNT,
     PROPHET_INPUT_REG_START,
     ProcessorError,
 )
-
-# the executor source stays in the reference package; its library is built
-# into the port's native/ (through a temporary file renamed into place)
-_HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_HERE), "olavm_tpu", "native",
-                    "gl_executor.cpp")
-_LIB = os.path.join(_HERE, "native", "libgl_executor.so")
 
 FP_REG = 9
 
@@ -79,14 +72,7 @@ def _u64p(arr):
 
 def _load():
     global _lib, available
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp],
-            check=True, capture_output=True,
-        )
-        os.replace(tmp, _LIB)
-    lib = ctypes.CDLL(_LIB)
+    lib = ctypes.CDLL(hostlib.build("gl_executor"))
     u64 = ctypes.c_uint64
     u64p = ctypes.POINTER(u64)
     vp = ctypes.c_void_p

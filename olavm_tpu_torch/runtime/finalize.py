@@ -8,9 +8,9 @@ table. Storage-hash finalization lives in the tree module (needs the SMT).
 
 from __future__ import annotations
 
-from olavm_tpu.field import goldilocks as g
-from olavm_tpu.runtime.memory import HP_START_ADDR, MEM_SPAN_SIZE
-from olavm_tpu.runtime.trace import MemoryRow, TapeRow
+from ..field import goldilocks as g
+from ..runtime.memory import HP_START_ADDR, MEM_SPAN_SIZE
+from ..runtime.trace import MemoryRow, TapeRow
 
 U32_MAX = 0xFFFFFFFF
 
@@ -144,7 +144,7 @@ def gen_tape_table(process, program):
 
 def gen_storage_table(process, program, hash_roots):
     """Sorted storage access table (executor/src/trace.rs:361-398)."""
-    from olavm_tpu.runtime.trace import StorageRow
+    from ..runtime.trace import StorageRow
 
     if not hash_roots:
         return
@@ -166,7 +166,7 @@ def gen_storage_hash_table(process, program, account_tree):
     witnesses (executor/src/trace.rs:280-359). Returns per-access root hashes
     and moves program-hash rows into trace.builtin_program_hash."""
     from ..tree.smt import ROOT_TREE_DEPTH, tree_key_to_int
-    from olavm_tpu.runtime.trace import StorageHashRow
+    from ..runtime.trace import StorageHashRow
 
     storage_log_len = len(process.storage_log)
     logs = list(process.storage_log) + list(process.program_log)

@@ -7,11 +7,11 @@ executor/src/tests.rs:25-148)."""
 
 from __future__ import annotations
 
-from olavm_tpu.assembler.encoder import encode_asm_from_json_file
+from ..assembler.encoder import encode_asm_from_json_file
 from ..hash import poseidon as pos
 from ..tree.smt import AccountTree
 from .finalize import gen_storage_hash_table, gen_storage_table
-from olavm_tpu.runtime.load_tx import init_tape, mock_tx_ctx
+from ..runtime.load_tx import init_tape, mock_tx_ctx
 from .process import Process, Program
 
 CALLEE = (9, 10, 11, 12)
@@ -32,7 +32,7 @@ def run_program_full(asm_path: str, calldata=None, account_tree=None,
     from_binary: asm_path is an already-assembled BinaryProgram JSON
     (the `ola run` input format, client/src/main.rs:90-95)."""
     if from_binary:
-        from olavm_tpu.isa.binary_program import BinaryProgram
+        from ..isa.binary_program import BinaryProgram
 
         bp = BinaryProgram.load_file(asm_path)
     else:
@@ -67,7 +67,7 @@ def run_program_full(asm_path: str, calldata=None, account_tree=None,
     except Exception as e:
         if dump_on_failure:
             # crash dump for offline debugging (executor/src/trace.rs:416)
-            from olavm_tpu.runtime.dump import gen_dump_file
+            from ..runtime.dump import gen_dump_file
 
             gen_dump_file(process, program, dump_on_failure, error=e)
         raise
@@ -89,7 +89,7 @@ def run_program_fast(asm_path: str, calldata=None, account_tree=None,
     from .process import gen_program_hash_rows
 
     if from_binary:
-        from olavm_tpu.isa.binary_program import BinaryProgram
+        from ..isa.binary_program import BinaryProgram
 
         bp = BinaryProgram.load_file(asm_path)
     else:

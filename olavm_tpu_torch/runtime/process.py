@@ -14,12 +14,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field as dfield
 from typing import Optional
 
-from olavm_tpu.field import goldilocks as g
+from ..field import goldilocks as g
 from ..hash import poseidon as pos
-from olavm_tpu.interpreter.prophet import HEAP_PTR, ProphetInterpreter
-from olavm_tpu.isa.instruction import decode_to_asm, instruction_length
-from olavm_tpu.isa.opcodes import FP_REG, NUM_REGISTERS, Opcode
-from olavm_tpu.runtime.memory import (
+from ..interpreter.prophet import HEAP_PTR, ProphetInterpreter
+from ..isa.instruction import decode_to_asm, instruction_length
+from ..isa.opcodes import FP_REG, NUM_REGISTERS, Opcode
+from ..runtime.memory import (
     HP_START_ADDR,
     MEM_READ,
     MEM_READ_WRITE,
@@ -31,7 +31,7 @@ from olavm_tpu.runtime.memory import (
     TapeTree,
     region_flags,
 )
-from olavm_tpu.runtime.trace import (
+from ..runtime.trace import (
     PoseidonChunkRow,
     PoseidonRow,
     RegisterSelector,
@@ -875,7 +875,7 @@ class Process:
 
     def _inst_sccall(self, program, ops, step, pc_status, ctx_regs, regs_status,
                      ctx_code):
-        from olavm_tpu.runtime.load_tx import append_caller_callee_addr
+        from ..runtime.load_tx import append_caller_callee_addr
 
         op0 = int(ops[1][1:])
         op1_value, reg = self._operand(ops[2])
@@ -962,7 +962,7 @@ class Process:
 
     def _inst_sigcheck(self, program, aux_steps, ops, step, ctx_regs, regs_status,
                        ctx_code):
-        from olavm_tpu.runtime.ecdsa import ecdsa_verify
+        from ..runtime.ecdsa import ecdsa_verify
 
         dst = int(ops[1][1:])
         value, reg = self._operand(ops[2])

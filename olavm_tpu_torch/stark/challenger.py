@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from olavm_tpu.field import goldilocks as g
+from ..field import goldilocks as g
 from ..hash import poseidon as pos
 
 RATE = 8

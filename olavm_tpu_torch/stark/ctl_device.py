@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from olavm_tpu.field import goldilocks as g
-from olavm_tpu.stark.cross_table_lookup import Column, CtlData, CtlZData
-from olavm_tpu.stark.stark_base import (
+from ..field import goldilocks as g
+from ..stark.cross_table_lookup import Column, CtlData, CtlZData
+from ..stark.stark_base import (
     get_grand_product_challenge_set,
     get_permutation_batches,
 )

@@ -19,12 +19,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from olavm_tpu.field import extension as ge
-from olavm_tpu.field import goldilocks as g
+from ..field import extension as ge
+from ..field import goldilocks as g
 from ..hash import poseidon as pos
 from ..merkle.tree import MerkleTree
-from olavm_tpu.utils.bits import bit_reversal_perm, reverse_bits
-from olavm_tpu.stark.polynomial import ext_coset_fft, ext_poly_eval
+from ..utils.bits import bit_reversal_perm, reverse_bits
+from ..stark.polynomial import ext_coset_fft, ext_poly_eval
 
 
 @dataclass

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from olavm_tpu.field import extension as ge
-from olavm_tpu.field import goldilocks as g
+from ..field import extension as ge
+from ..field import goldilocks as g
 
 from ..field import gf
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from olavm_tpu.utils.bits import log2_strict
+from ..utils.bits import log2_strict
 
 from ..field import gf
 from ..field import gfe

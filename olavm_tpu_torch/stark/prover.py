@@ -4,8 +4,8 @@ prover itself is stark/prover_device.py."""
 
 from __future__ import annotations
 
-from olavm_tpu.field import extension as ge
-from olavm_tpu.field import goldilocks as g
+from ..field import extension as ge
+from ..field import goldilocks as g
 
 from .fri import FriBatchInfo, FriInstance
 

@@ -24,19 +24,19 @@ import logging
 import numpy as np
 import torch
 
-from olavm_tpu.field import extension as ge
-from olavm_tpu.field import goldilocks as g
-from olavm_tpu.stark.consumer import ConstraintConsumer
-from olavm_tpu.stark.cross_table_lookup import (
+from ..field import extension as ge
+from ..field import goldilocks as g
+from ..stark.consumer import ConstraintConsumer
+from ..stark.cross_table_lookup import (
     CtlCheckVars,
     eval_cross_table_lookup_checks,
 )
-from olavm_tpu.stark.stark_base import (
+from ..stark.stark_base import (
     eval_permutation_checks,
     get_n_grand_product_challenge_sets,
 )
-from olavm_tpu.utils.bits import log2_strict
-from olavm_tpu.utils.timing import TimingTree
+from ..utils.bits import log2_strict
+from ..utils.timing import TimingTree
 
 from ..field import gf
 from ..field import gfe
@@ -458,12 +458,18 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
                              trace_poly_values: list[np.ndarray],
                              public_values: PublicValues | None = None,
                              timing: TimingTree | None = None, *,
-                             device) -> AllProof:
+                             device="cuda") -> AllProof:
     """Device analogue of prover.prove_with_traces: the same challenger
     transcript, every heavy phase on `device`. trace_poly_values: per table
-    (num_cols, degree) uint64 host arrays."""
+    (num_cols, degree) uint64 host arrays. The prove runs on the card unless
+    the caller asks for another device (the CPU tests pass "cpu"); without a
+    card the default raises, it never carries on on the CPU by itself."""
     timing = timing or TimingTree()
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "prove_with_traces_device: no CUDA device is available; pass "
+            "device=\"cpu\" to prove on the host")
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
     hasher = config.hasher()

@@ -9,11 +9,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from olavm_tpu.field import extension as ge
-from olavm_tpu.field import goldilocks as g
+from ..field import extension as ge
+from ..field import goldilocks as g
 from .challenger import Challenger
-from olavm_tpu.stark.consumer import ConstraintConsumer
-from olavm_tpu.stark.cross_table_lookup import (
+from ..stark.consumer import ConstraintConsumer
+from ..stark.cross_table_lookup import (
     ctl_check_vars_from_proofs,
     eval_cross_table_lookup_checks,
     verify_cross_table_lookups,
@@ -22,7 +22,7 @@ from .fri import FriInstance, verify_fri_proof
 from .ops import ExtOps
 from .prover import fri_instance_for_stark
 from .proof import AllProof, StarkProof
-from olavm_tpu.stark.stark_base import (
+from ..stark.stark_base import (
     eval_permutation_checks,
     get_grand_product_challenge_set,
     get_n_grand_product_challenge_sets,

@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from olavm_tpu.field import goldilocks as gl
-from olavm_tpu.isa.opcodes import Opcode
+from ..field import goldilocks as gl
+from ..isa.opcodes import Opcode
 from ..stark.challenger import Challenger
-from olavm_tpu.stark.cross_table_lookup import Column
-from olavm_tpu.stark.lookup import eval_lookups, permuted_cols
-from olavm_tpu.stark.stark_base import PermutationPair, Stark
+from ..stark.cross_table_lookup import Column
+from ..stark.lookup import eval_lookups, permuted_cols
+from ..stark.stark_base import PermutationPair, Stark
 
 FILTER = 0
 TAG = 1

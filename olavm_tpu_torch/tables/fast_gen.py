@@ -16,15 +16,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from olavm_tpu.field import goldilocks as gl
-from olavm_tpu.isa.opcodes import Opcode
+from ..field import goldilocks as gl
+from ..isa.opcodes import Opcode
 from ..runtime import fast_executor as fx
 from . import bitwise as bw_t
-from olavm_tpu.tables import cmp as cmp_t
-from olavm_tpu.tables import cpu as cpu_t
-from olavm_tpu.tables import memory as mem_t
-from olavm_tpu.tables import rangecheck as rc_t
-from olavm_tpu.tables import tape as tape_t
+from ..tables import cmp as cmp_t
+from ..tables import cpu as cpu_t
+from ..tables import memory as mem_t
+from ..tables import rangecheck as rc_t
+from ..tables import tape as tape_t
 from . import program as prog_t
 
 
@@ -199,7 +199,7 @@ def generate_rc_trace_soa(rc: np.ndarray) -> np.ndarray:
     fix = np.arange(ext, dtype=np.uint64)
     fix[rc_t.RANGE_CHECK_U16_SIZE:] = rc_t.RANGE_CHECK_U16_SIZE - 1
     tr[rc_t.FIX_RANGE_CHECK_U16] = fix
-    from olavm_tpu.stark.lookup import permuted_cols
+    from ..stark.lookup import permuted_cols
 
     tr[rc_t.LIMB_LO_PERMUTED], tr[rc_t.FIX_RANGE_CHECK_U16_PERMUTED_LO] = (
         permuted_cols(tr[rc_t.LIMB_LO], tr[rc_t.FIX_RANGE_CHECK_U16])
@@ -287,9 +287,9 @@ def generate_traces_fast(fast_run, program, ola_stark, process, progs=None):
     for fast-path programs only hold program-hash and SMT bookkeeping."""
     from . import ola_stark as _os
     from . import poseidon as pos_t
-    from olavm_tpu.tables import poseidon_chunk as pc_t
-    from olavm_tpu.tables import sccall as sc_t
-    from olavm_tpu.tables import storage_access as st_t
+    from ..tables import poseidon_chunk as pc_t
+    from ..tables import sccall as sc_t
+    from ..tables import storage_access as st_t
 
     trace = program.trace
     if progs is None:
@@ -410,7 +410,7 @@ def generate_prog_trace_soa(cpu: np.ndarray, addr_code, progs,
     )
     comp[pidx:] = 0
     tr[prog_t.COL_PROG_COMP_PROG] = comp
-    from olavm_tpu.stark.lookup import permuted_cols
+    from ..stark.lookup import permuted_cols
 
     (tr[prog_t.COL_PROG_EXEC_COMP_PROG_PERM],
      tr[prog_t.COL_PROG_COMP_PROG_PERM]) = permuted_cols(

@@ -9,22 +9,22 @@ from __future__ import annotations
 
 import numpy as np
 
-from olavm_tpu.stark.cross_table_lookup import (
+from ..stark.cross_table_lookup import (
     Column,
     CrossTableLookup,
     TableWithColumns,
 )
 from . import bitwise as bw
-from olavm_tpu.tables import cmp as cmp_t
-from olavm_tpu.tables import cpu
-from olavm_tpu.tables import memory as mem
+from ..tables import cmp as cmp_t
+from ..tables import cpu
+from ..tables import memory as mem
 from . import poseidon as pos_t
-from olavm_tpu.tables import poseidon_chunk as pc
+from ..tables import poseidon_chunk as pc
 from . import program as prog
-from olavm_tpu.tables import rangecheck as rc
-from olavm_tpu.tables import sccall as sc
-from olavm_tpu.tables import storage_access as st
-from olavm_tpu.tables import tape as tape_t
+from ..tables import rangecheck as rc
+from ..tables import sccall as sc
+from ..tables import storage_access as st
+from ..tables import tape as tape_t
 
 # Table indices (ola_stark.rs:104-120)
 CPU = 0

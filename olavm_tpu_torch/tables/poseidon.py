@@ -10,8 +10,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..hash import poseidon as pos
-from olavm_tpu.stark.cross_table_lookup import Column
-from olavm_tpu.stark.stark_base import Stark
+from ..stark.cross_table_lookup import Column
+from ..stark.stark_base import Stark
 
 FILTER_LOOKED_NORMAL = 0
 FILTER_LOOKED_TREEKEY = 1

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..hash import poseidon as pos
-from olavm_tpu.runtime.trace import PoseidonRow
+from ..runtime.trace import PoseidonRow
 
 ROOT_TREE_DEPTH = 256
 

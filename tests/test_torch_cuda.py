@@ -15,6 +15,7 @@ from olavm_tpu.hash import poseidon as jpos
 from olavm_tpu_torch import convert, kernels
 from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.hash import poseidon as tpos
+from olavm_tpu_torch.merkle import device as tmerkle
 from olavm_tpu_torch.ntt import ntt as tntt
 
 pytestmark = pytest.mark.cuda
@@ -64,6 +65,76 @@ def test_ntt_kernel_matches_plain(dev, n):
         assert torch.equal(tntt._ntt_cuda(x, inverse), tntt.ntt_plain(x, inverse))
     back = tntt.intt(tntt.ntt(x))
     assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("logn", range(1, 25))
+def test_ntt_kernel_matches_plain_at_every_size(dev, logn):
+    # every split of the stages into passes: one launch up to 2^13, two up to
+    # 2^20, three beyond; odd batches leave a block's last columns empty
+    passes = kernels.lib("ntt").gl_ntt_passes(logn)
+    assert passes == (1 if logn <= 13 else 2 if logn <= 20 else 3)
+    batch = 3 if logn <= 20 else 1
+    x = convert.from_u64(_rand((batch, 1 << logn), logn), dev)
+    before = kernels.LAUNCHES["ntt"]
+    for inverse in (False, True):
+        assert torch.equal(tntt._ntt_cuda(x, inverse), tntt.ntt_plain(x, inverse))
+    assert kernels.LAUNCHES["ntt"] == before + 2
+
+
+def test_ntt_kernel_refuses_what_it_does_not_take(dev):
+    x = convert.from_u64(_rand((2, 64), 1), dev)
+    with pytest.raises(TypeError):
+        tntt._ntt_cuda(x.to(torch.int32), False)
+    tw = tntt.twiddles(6, False, dev)
+    out = torch.empty_like(x)
+    lib = kernels.lib("ntt")
+    # aliased input and output, and a size beyond three passes
+    assert lib.gl_ntt(x.data_ptr(), x.data_ptr(), tw.data_ptr(), 2, 6,
+                      kernels.stream_ptr(x)) != 0
+    assert lib.gl_ntt(x.data_ptr(), out.data_ptr(), tw.data_ptr(), 2, 31,
+                      kernels.stream_ptr(x)) != 0
+    with pytest.raises(RuntimeError):
+        kernels.check(1, "ntt")
+
+
+@pytest.mark.parametrize("C", [1, 4, 5, 8, 9, 18, 29, 32, 94, 128, 129, 134, 256])
+def test_blake3_leaves_kernel_matches_plain(dev, C):
+    cols = convert.from_u64(_rand((C, 1000), C), dev)
+    before = kernels.LAUNCHES["blake3_leaves"]
+    got = tmerkle.leaf_digests(cols)
+    # leaves of at most 4 elements are their own digests: no launch
+    assert kernels.LAUNCHES["blake3_leaves"] == before + (1 if C > 4 else 0)
+    want = tmerkle.leaf_digests(cols.cpu())
+    assert torch.equal(got.cpu(), want)
+    if C > 4:
+        assert torch.equal(got, tmerkle.leaf_digests_plain(cols))
+
+
+@pytest.mark.parametrize("n", [2, 6, 1 << 12])
+def test_blake3_level_kernel_matches_plain(dev, n):
+    digs = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 1 << 32, size=(8, n), dtype=np.int64)).to(dev)
+    before = kernels.LAUNCHES["blake3_level"]
+    got = tmerkle.compress_level(digs)
+    assert kernels.LAUNCHES["blake3_level"] == before + 1
+    assert torch.equal(got, tmerkle.compress_level_plain(digs))
+
+
+def test_blake3_kernels_refuse_what_they_do_not_take(dev):
+    cols = convert.from_u64(_rand((9, 64), 1), dev)
+    with pytest.raises(TypeError):
+        tmerkle.leaf_digests(cols.to(torch.int32))
+    with pytest.raises(ValueError):
+        tmerkle.leaf_digests(cols.T)  # (64, 9) view, not contiguous
+    with pytest.raises(ValueError):
+        tmerkle.leaf_digests(torch.zeros((257, 2), dtype=torch.int64, device=dev))
+    digs = torch.zeros((8, 64), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        tmerkle.compress_level(digs.to(torch.int32))
+    with pytest.raises(ValueError):
+        tmerkle.compress_level(digs[:, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        tmerkle.compress_level(digs[:, :63].contiguous())  # odd width
 
 
 def test_poseidon_kernel_matches_plain_and_numpy(dev):

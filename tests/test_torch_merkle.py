@@ -3,8 +3,11 @@ merkle/device.py, stark/oracle_device.py) against the official BLAKE3
 vectors, olavm_tpu's blake3 leaf hashing, the host PolynomialBatch and the
 JAX package's DevicePolynomialBatch: caps, coefficients, query leaves and
 paths must be equal. Covers the noop leaves (C <= 4), two-chunk leaves
-(C > 128, the 134-column Poseidon table), the 256-column limit and the empty
-paths of degree-2 tables."""
+(C > 128, the 134-column Poseidon table), the 256-column limit, FRI's
+32-column extension leaves and the empty paths of degree-2 tables. On CPU
+tensors `leaf_digests` and `compress_level` run their plain versions
+(`leaf_digests_plain`, `compress_level_plain`), the ones the blake3 kernels
+are held against on the card."""
 
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from olavm_tpu.stark.oracle import PolynomialBatch
 from olavm_tpu.stark.oracle_device import (
     DevicePolynomialBatch as JaxPolynomialBatch,
 )
-from olavm_tpu_torch import convert
+from olavm_tpu_torch import convert, kernels
 from olavm_tpu_torch.field import gfe
 from olavm_tpu_torch.hash import blake3 as tb3
 from olavm_tpu_torch.merkle import device as tmerkle
@@ -56,12 +59,37 @@ def _eval_at_ext_host(vals: np.ndarray, z: np.ndarray) -> list:
     return out
 
 
-@pytest.mark.parametrize("C", [5, 8, 9, 16, 128, 129, 134, 256])
+@pytest.mark.parametrize("C", [5, 8, 9, 16, 18, 29, 32, 94, 128, 129, 134, 255,
+                               256])
 def test_leaf_digests_match_reference(C):
     rows = np.random.default_rng(C).integers(0, g.P, size=(7, C), dtype=np.uint64)
-    digs = tmerkle.leaf_digests(convert.from_u64(rows.T.copy(), "cpu"))
+    cols = convert.from_u64(rows.T.copy(), "cpu")
+    before = dict(kernels.LAUNCHES)
+    digs = tmerkle.leaf_digests(cols)
     np.testing.assert_array_equal(tmerkle.digests_to_u64(digs),
                                   hash_leaves_np(rows))
+    assert torch.equal(tmerkle.leaf_digests_plain(cols), digs)
+    # a CPU tensor never reaches a kernel
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("arity", [4, 16])
+def test_fri_extension_leaves_match_reference(arity):
+    # _DeviceExtTree's leaves: `arity` consecutive extension values, each as
+    # (re, im), so arity 16 gives 32-column leaves
+    from olavm_tpu_torch.stark.prover_device import _DeviceExtTree
+
+    n = 16 * arity
+    vals = np.random.default_rng(arity).integers(0, g.P, size=(n, 2),
+                                                 dtype=np.uint64)
+    tree = _DeviceExtTree(gfe.from_u64_pair(vals, "cpu"), arity, 2)
+    perm = np.array([int(f"{i:0{n.bit_length() - 1}b}"[::-1], 2)
+                     for i in range(n)])
+    rows = vals[perm].reshape(n // arity, 2 * arity)
+    host = MerkleTree.build(rows, 2, hasher=by_name("blake3"))
+    np.testing.assert_array_equal(tmerkle.digests_to_u64(tree.levels[0]),
+                                  hash_leaves_np(rows))
+    np.testing.assert_array_equal(tree.cap, np.asarray(host.cap, dtype=np.uint64))
 
 
 def test_noop_leaves_and_width_limit():
@@ -80,6 +108,8 @@ def test_compress_level_matches_reference():
     words = np.stack([digs & np.uint64(0xFFFFFFFF), digs >> np.uint64(32)],
                      axis=-1).reshape(8, 8).T.astype(np.int64)
     parent = tmerkle.compress_level(torch.from_numpy(words.copy()))
+    assert torch.equal(
+        tmerkle.compress_level_plain(torch.from_numpy(words.copy())), parent)
     np.testing.assert_array_equal(tmerkle.digests_to_u64(parent),
                                   by_name("blake3").compress(digs[0::2],
                                                              digs[1::2]))

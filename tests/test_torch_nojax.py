@@ -1,12 +1,17 @@
-"""The port runs without jax: every olavm_tpu_torch module imports with jax
-refused, and the main path (the fib-loop fixture's execute and trace
-generation, then a ToySystem-sized prove and verify on the CPU path) runs
-either with jax refused or, where jax is installed, without loading it.
+"""The port stands on its own: every olavm_tpu_torch module imports with jax,
+jaxlib AND the olavm_tpu package refused, and the main path (the fib-loop
+fixture's execute and trace generation, then a ToySystem-sized prove and
+verify on the CPU path) runs in that state or, where both are installed,
+without loading either. No source of the port imports jax or olavm_tpu or
+reads a file out of olavm_tpu/, and importing the port leaves the reference
+package's host libraries as they are.
 
-Each case runs in a fresh interpreter, since this test process has jax."""
+Each subprocess case runs in a fresh interpreter, since this test process
+has jax."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -15,15 +20,15 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-REFUSE_JAX = """
+REFUSE_JAX_AND_REFERENCE = """
 import sys
-class RefuseJax:
+class Refuse:
     @staticmethod
     def find_spec(name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax refused: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "olavm_tpu"):
+            raise ImportError("refused: " + name)
         return None
-sys.meta_path.insert(0, RefuseJax)
+sys.meta_path.insert(0, Refuse)
 """
 
 IMPORT_ALL = """
@@ -38,12 +43,18 @@ result["modules"] = len(names)
 """
 
 REFERENCE_NATIVE = """
-# importing the port before jax leaves olavm_tpu's native Poseidon off for
-# the process; its other native libraries must still load
+# the port imported first must leave the reference package's host libraries
+# (and the import machinery) as they were
+meta_path = list(sys.meta_path)
+import olavm_tpu_torch
+from olavm_tpu_torch.native import lookup_native, ntt_native
+result["meta_path_untouched"] = list(sys.meta_path) == meta_path
+result["port_native"] = [olavm_tpu_torch.native.available,
+                         ntt_native.available, lookup_native.available]
 import olavm_tpu.native as ref_native
-from olavm_tpu.native import lookup_native, ntt_native
-result["native"] = [ref_native.available, ntt_native.available,
-                    lookup_native.available]
+from olavm_tpu.native import lookup_native as ref_lookup, ntt_native as ref_ntt
+result["native"] = [ref_native.available, ref_ntt.available,
+                    ref_lookup.available]
 """
 
 TRACE_GEN = """
@@ -62,10 +73,10 @@ result["shapes"] = [list(t.shape) for t in traces]
 
 TOY_PROVE = """
 import numpy as np
-from olavm_tpu.field import goldilocks as g
-from olavm_tpu.stark.cross_table_lookup import (
+from olavm_tpu_torch.field import goldilocks as g
+from olavm_tpu_torch.stark.cross_table_lookup import (
     Column, CrossTableLookup, TableWithColumns)
-from olavm_tpu.stark.stark_base import PermutationPair, Stark
+from olavm_tpu_torch.stark.stark_base import PermutationPair, Stark
 from olavm_tpu_torch.stark.config import FriConfig, StarkConfig
 from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
 from olavm_tpu_torch.stark.verifier import verify_proof
@@ -124,11 +135,13 @@ result["verified"] = True
 
 def _run(*parts: str) -> dict:
     """Run the parts in a fresh interpreter; returns their `result` dict and
-    the jax modules loaded by the end."""
+    the jax and olavm_tpu modules loaded by the end."""
     head = (f"import json, os, sys\nsys.path.insert(0, {ROOT!r})\n"
             "result = {}\n")
     tail = ("result['jax_loaded'] = sorted(m for m in sys.modules\n"
             "    if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+            "result['reference_loaded'] = sorted(m for m in sys.modules\n"
+            "    if m.split('.')[0] == 'olavm_tpu')\n"
             "print(json.dumps(result))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     code = head + "".join(textwrap.dedent(p) for p in parts) + tail
@@ -140,26 +153,73 @@ def _run(*parts: str) -> dict:
 
 
 def test_port_imports_and_runs_with_jax_refused():
-    res = _run(REFUSE_JAX, IMPORT_ALL, REFERENCE_NATIVE, TRACE_GEN, TOY_PROVE)
-    assert res["modules"] >= 30
-    assert res["native"] == [False, True, True]
+    res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, TOY_PROVE)
+    assert res["modules"] >= 65
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
-    assert res["verified"] and res["jax_loaded"] == []
+    assert res["verified"]
+    assert res["jax_loaded"] == [] and res["reference_loaded"] == []
 
 
 def test_port_leaves_installed_jax_unloaded():
-    # where jax is installed, the port must still not load it
+    # where jax and olavm_tpu are installed, the port must still load neither
     pytest.importorskip("jax")
-    res = _run("import olavm_tpu_torch\n", REFERENCE_NATIVE, TOY_PROVE)
-    assert res["native"] == [False, True, True]
-    assert res["verified"] and res["jax_loaded"] == []
+    res = _run("import olavm_tpu_torch\n", TOY_PROVE)
+    assert res["verified"]
+    assert res["jax_loaded"] == [] and res["reference_loaded"] == []
+
+
+def test_port_import_leaves_reference_native_alone():
+    # the port once imported olavm_tpu.native with jax refused, which left
+    # that package's Poseidon library off for the process
+    pytest.importorskip("jax")
+    res = _run(REFERENCE_NATIVE)
+    assert res["meta_path_untouched"]
+    assert res["port_native"] == [True, True, True]
+    assert res["native"] == [True, True, True]
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, name) for name in
+             ("chip_smoke.py", "chip_profile.py", "chip_ntt_times.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "olavm_tpu_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+IMPORT_OF = {
+    "jax": re.compile(r"^\s*(from|import)\s+jax(lib)?(\.|\s|$)"),
+    "olavm_tpu": re.compile(r"^\s*(from|import)\s+olavm_tpu(\.|\s|$)"),
+}
 
 
 def test_no_port_source_imports_jax():
-    for base, _, files in os.walk(os.path.join(ROOT, "olavm_tpu_torch")):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(base, name)) as f:
-                    for line in f:
-                        assert not line.strip().startswith(
-                            ("import jax", "from jax")), (name, line)
+    for path in _port_sources():
+        with open(path) as f:
+            for line in f:
+                assert not IMPORT_OF["jax"].match(line), (path, line)
+
+
+def test_no_port_source_imports_reference():
+    assert len(_port_sources()) >= 65
+    for path in _port_sources():
+        with open(path) as f:
+            for line in f:
+                assert not IMPORT_OF["olavm_tpu"].match(line), (path, line)
+
+
+def test_no_port_source_reads_reference_files():
+    # a path into the reference package would be spelled with its directory
+    # name as a string of its own
+    literal = re.compile(r"""["']olavm_tpu["'/.]""")
+    for path in _port_sources():
+        if path.endswith("chip_smoke.py"):
+            continue  # names the TPU kernels it replaces, as "olavm_tpu/...:line"
+        with open(path) as f:
+            for line in f:
+                assert not literal.search(line), (path, line)
+
+
+def test_port_init_does_not_touch_the_import_machinery():
+    with open(os.path.join(ROOT, "olavm_tpu_torch", "__init__.py")) as f:
+        text = f.read()
+    assert "meta_path" not in text and "import " not in text

@@ -71,6 +71,23 @@ def test_plain_ladder_matches_pallas_ntt_interpret(n):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("logn", range(1, 15))
+def test_plain_ladder_matches_host_at_every_size(logn):
+    # the plain version K1 is held against on the card, forward and inverse
+    # (without 1/n), at every size up to the kernel's largest one-pass tile
+    from olavm_tpu_torch import kernels
+
+    n = 1 << logn
+    x = _vals((2, n), 200 + logn)
+    before = kernels.LAUNCHES["ntt"]
+    fwd = convert.to_u64(tntt.ntt_plain(_t(x), inverse=False))
+    np.testing.assert_array_equal(fwd, ntt_host.ntt(x))
+    inv = convert.to_u64(tntt.ntt_plain(_t(fwd), inverse=True))
+    np.testing.assert_array_equal(inv, g.mul_arr(x, np.uint64(n)))
+    np.testing.assert_array_equal(convert.to_u64(tntt.ntt(_t(x))), fwd)
+    assert kernels.LAUNCHES["ntt"] == before  # a CPU tensor runs no kernel
+
+
 def test_ntt_matches_naive_evaluation():
     # fft.rs:219-238: degree 200, coeffs i*1337 % 100, zero-padded to 256
     coeffs = [(i * 1337) % 100 for i in range(200)] + [0] * 56

@@ -69,6 +69,19 @@ def test_port_verifier_accepts_and_rejects(proofs):
         tverifier.verify_proof(system, bad, port_cfg)
 
 
+def test_default_device_is_the_card_and_is_never_replaced_by_the_cpu():
+    import inspect
+
+    import torch
+
+    sig = inspect.signature(prove_with_traces_device)
+    assert sig.parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove_with_traces_device(ToySystem(), _configs(8)[1], build_traces(64))
+
+
 @pytest.mark.slow
 def test_standard_config_bytes_equal_host_prover():
     system, host_cfg, port_cfg, host, port = _prove_both(
