@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Time the NTT (K1) and Poseidon (K2) kernels of this checkout at the main
+path's shapes, and count the SASS instructions of their kernels.
+
+    python3 chip_kernel_times.py                    # K1 and K2; one CUDA card, nvcc
+    python3 chip_kernel_times.py --kernel poseidon  # K2 only
+
+Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
+after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per kernel
+{"root": ..., "kernel": ..., "card": ..., "ptxas": [...], "sass": {...},
+"ms": {shape: milliseconds}}. `sass` holds, for every __global__ function of
+the built library, its instruction count (cuobjdump -sass, NOPs left out) and
+each loop's span and count (a branch back to an earlier address); and, under
+`products`, the counts of this checkout's field product less a probe that
+only loads and stores: `u64_product` is the 64-bit `a * b` with
+`__umul64hi`, `mul_wide` the 64x64->128 product of goldilocks.cuh, `mul`
+that product reduced (null in a checkout without `gl::mul_wide`).
+To compare two versions of a kernel, unpack each checkout into a directory of
+its own, put this script in each, and run each copy in turns (a b b a) within
+one call on one card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SHAPES = {
+    "ntt": ((16, 1 << 23), (18, 1 << 24), (16, 1 << 21), (16, 1 << 20),
+            (16, 1 << 17), (3, 1 << 13), (134, 1024), (53, 16)),
+    "poseidon": ((12, 1 << 18), (12, 1 << 20), (12, 1 << 14)),
+}
+
+# product probes: one thread per pair, two words out
+PROBES = r"""
+#include "goldilocks.cuh"
+#define PROBE(name, body)                                              \
+  extern "C" __global__ void name(const uint64_t* a, const uint64_t* b, \
+                                  uint64_t* o) {                       \
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;               \
+    const uint64_t x = a[i], y = b[i];                                 \
+    body                                                               \
+  }
+PROBE(probe_base, o[2 * i] = x; o[2 * i + 1] = y;)
+PROBE(probe_u64_product, o[2 * i] = x * y; o[2 * i + 1] = __umul64hi(x, y);)
+PROBE(probe_mul_wide, const gl::u128 w = gl::mul_wide(x, y);
+      o[2 * i] = w.lo; o[2 * i + 1] = w.hi;)
+PROBE(probe_mul, o[2 * i] = gl::mul(x, y); o[2 * i + 1] = y;)
+"""
+
+_INSTR = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_FUNC = re.compile(r"^\s+Function : (\S+)")
+_BRA = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+
+
+def _tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+
+
+def sass_counts(path: str) -> dict:
+    """{function: {"instructions": n, "loops": [[start, end, n], ...]}} of a
+    shared library or cubin, from cuobjdump -sass."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", path], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, name, instrs = {}, None, []
+
+    def close():
+        if name is not None:
+            loops = []
+            for a, op in instrs:
+                m = _BRA.search(op)
+                if m and int(m.group(1), 16) < a:
+                    target = int(m.group(1), 16)
+                    n = sum(1 for x, _ in instrs if target <= x <= a)
+                    loops.append([hex(target), hex(a), n])
+            funcs[name] = {"instructions": len(instrs), "loops": loops}
+
+    for line in text.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            close()
+            name, instrs = m.group(1), []
+            continue
+        m = _INSTR.match(line)
+        if m and name is not None:
+            op = m.group(2).strip()
+            if not op.startswith("NOP"):
+                instrs.append((int(m.group(1), 16), op))
+    close()
+    return funcs
+
+
+def product_counts(csrc: str) -> dict | None:
+    """SASS instructions of the product probes, less the load/store probe;
+    None where goldilocks.cuh has no `gl::mul_wide` and the probes do not
+    compile."""
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "probes.cu")
+        with open(src, "w") as f:
+            f.write(PROBES)
+        cubin = os.path.join(d, "probes.cubin")
+        built = subprocess.run(
+            [_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-cubin", "-I", csrc, "-o", cubin, src],
+            capture_output=True)
+        if built.returncode != 0:
+            return None
+        counts = {k: v["instructions"] for k, v in sass_counts(cubin).items()}
+    base = counts.pop("probe_base")
+    return {k.removeprefix("probe_"): v - base for k, v in counts.items()}
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(SHAPES),
+                    help="time only this kernel (default: both)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from olavm_tpu_torch import kernels
+
+    names = [args.kernel] if args.kernel else sorted(SHAPES)
+    kernels.build(names, force=True)
+    products = product_counts(str(kernels.CSRC))
+    for name in names:
+        result = {
+            "root": ROOT, "kernel": name, "card": chip_smoke.nvidia_smi(),
+            "ptxas": [ln.strip() for ln in kernels.BUILD_LOG[name].splitlines()
+                      if "registers" in ln or "spill" in ln],
+            "sass": {"kernels": sass_counts(str(kernels._lib_path(name))),
+                     "products": products},
+            "ms": time_kernel(name, chip_smoke.cuda_ms)}
+        print(json.dumps(result))
+    return 0
+
+
+def time_kernel(kernel: str, cuda_ms) -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kernel == "ntt":
+        from olavm_tpu_torch.ntt import ntt as dntt
+
+        def call(x):
+            return dntt._ntt_cuda(x, False)
+    else:
+        from olavm_tpu_torch.hash import poseidon as pos
+
+        call = pos.permute
+    ms = {}
+    for shape in SHAPES[kernel]:
+        x = torch.randint(0, 1 << 62, shape, generator=gen, device="cuda")
+        reps = 10 if shape[0] * shape[1] >= 1 << 24 else 200
+        ms[f"{shape[0]}x2^{shape[1].bit_length() - 1}"] = cuda_ms(lambda: call(x), reps)
+        del x
+    return ms
+
+
+if __name__ == "__main__":
+    sys.exit(main())

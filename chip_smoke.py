@@ -46,43 +46,87 @@ SEED = 0  # random kernel inputs
 
 # The card's peaks for `bound_ms` (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, and 67 TFLOP/s of float32 outside the tensor cores, which is
-# 128 lanes per SM doing one 2-flop multiply-add per clock. 32-bit integer
-# instructions issue on 64 lanes per SM, one operation each: a quarter of the
-# float32 figure.
+# 128 lanes per SM doing one 2-flop multiply-add per clock. Integer work runs
+# on two pipes of 64 lanes per SM each, one 32-bit result per lane per clock:
+# the multiply pipe (IMAD, a quarter of the float32 figure) takes the
+# multiplies, the ALU pipe takes logic, shifts, three-term adds, compares and
+# selects, and two-term adds, carries and moves issue on either (ptxas writes
+# them as IMAD.IADD, IMAD.X, IMAD.MOV). The four schedulers issue at most 128
+# lanes per SM per clock between them: half the float32 figure.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 67e12 / 4
+PEAK_PIPE_OPS_PER_S = 67e12 / 4
+PEAK_ISSUE_OPS_PER_S = 67e12 / 2
 # 32-bit integer operations that one Goldilocks operation needs, operands
-# being two 32-bit words: a general 64x64->128 product is 4 multiply-adds of
-# 32x32->64 with their carries and the reduction of 128 bits is ~10 more; an
-# add or a sub is a 2-word add, a compare and a 2-word correction
-OPS_MUL, OPS_ADD = 20, 6
+# being two 32-bit words: a general 64x64->128 product is 4 products of
+# 32x32->64, each a low and a high word on the multiply pipe (8), with the
+# cross terms' adds fused into them as multiply-adds and 2 carries left
+# (~10); reducing its 128 bits to a canonical word is ~10 more; an add or a
+# sub is a 2-word add, a compare and a 2-word correction. Of these, only the
+# multiplies are tied to a pipe here: the compares and selects of the
+# reductions go to the either-pipe share, which can only lower the bound.
+OPS_PRODUCT, OPS_REDUCE, OPS_ADD = 10, 10, 6
+MUL_PRODUCT = 8
+OPS_MUL = OPS_PRODUCT + OPS_REDUCE  # 20, of which 8 multiplies
+# A dot product of full-size values needs one reduction, not one per term:
+# each product is added unreduced into a 3-word sum (lo, hi, top: a 4-limb
+# add with carries and the carry into top, ~5), and the sum is reduced once
+# (top x EPSILON folded into hi: a shift-subtract, a 2-word add and a
+# correction, ~4; then the 128-bit reduction).
+OPS_ACCUMULATE = 5
+OPS_REDUCE_WIDE = 4 + OPS_REDUCE  # 14
 # one blake3 compression: 7 rounds x 8 G x (4 adds, two of them of three
 # terms, which the card does as one instruction, + 4 xors + 4 rotates), and 8
-# xors for the truncated output
-OPS_BLAKE3 = 7 * 8 * 12 + 8
-# One Poseidon permutation, counted by what the function needs and not by how
-# csrc/poseidon.cu codes it (its MDS rows go through the general multiply).
-# The MDS entries are constants of at most 41 (6 bits), so an output of the
-# MDS layer is 12 multiply-adds of constant x low word and 12 of constant x
-# high word into two 64-bit sums below 2^42, and one reduction of
-# lo + hi * 2^32 (below 2^74: split hi, fold 2^64 = 2^32 - 1, two 2-word
-# adds with carry, one correction; ~11). Row 0 has the diagonal's 8 as a 13th
-# entry (2 more multiply-adds).
-OPS_MDS_OUTPUT = 2 * 12 + 11  # 35, against 13 * 20 + 12 * 6 = 332 in general
-OPS_MDS_LAYER = 12 * OPS_MDS_OUTPUT + 2  # 422
-# a full round: 12 constant adds, 12 x^7 of 4 general products, the MDS layer
-OPS_FULL_ROUND = 12 * OPS_ADD + 12 * 4 * OPS_MUL + OPS_MDS_LAYER  # 1454
+# xors for the truncated output; all but the two two-term adds of each G are
+# ALU-only
+OPS_BLAKE3 = 7 * 8 * 12 + 8  # 680
+ALU_BLAKE3 = 7 * 8 * 10 + 8  # 568
+# One Poseidon permutation, counted by what the function needs.
+# The MDS entries are constants of at most 41 (6 bits), so a term c x s_j is
+# c x low word and c x high word, each a 32x32->64 multiply-add (a low and a
+# high result: 4 multiplies) into two 64-bit sums below 2^42, and an output
+# is one reduction of lo + hi * 2^32 (below 2^74: split hi, fold
+# 2^64 = 2^32 - 1, two 2-word adds with carry, one correction; ~11). Row 0
+# has the diagonal's 8 as a 13th term.
+MUL_MDS_TERM = 4
+OPS_MDS_OUTPUT = 12 * MUL_MDS_TERM + 11  # 59, against 13 * 20 + 12 * 6 = 332 in general
+OPS_MDS_LAYER = 12 * OPS_MDS_OUTPUT + MUL_MDS_TERM  # 712
+MUL_MDS_LAYER = (12 * 12 + 1) * MUL_MDS_TERM  # 580
+# a full round: 12 constant adds, 12 x^7 of 4 general products (a chain, so
+# each product reduced), the MDS layer: 72 + 960 + 712 = 1744, of which
+# 48 x 8 + 580 = 964 multiplies
+OPS_FULL_ROUND = 12 * OPS_ADD + 12 * 4 * OPS_MUL + OPS_MDS_LAYER  # 1744
+MUL_FULL_ROUND = 12 * 4 * MUL_PRODUCT + MUL_MDS_LAYER  # 964
+
+
+def ops_dot(k: int) -> int:
+    """A dot product of k full-size terms: k products and accumulates, one
+    wide reduction (k x 8 of them multiplies)."""
+    return k * (OPS_PRODUCT + OPS_ACCUMULATE) + OPS_REDUCE_WIDE
+
+
 # before the partial rounds: 12 constant adds and the dense 11x11 matrix of
-# full-size constants (121 general products, 10 adds per output)
-OPS_PARTIAL_ENTRY = 12 * OPS_ADD + 121 * OPS_MUL + 110 * OPS_ADD  # 3152
-# a partial round: one x^7, one constant add, 25 * s0 as a small constant (2
-# multiply-adds and the reduction), 11 products and adds with W_HATS into
-# word 0 and 11 products and adds with VS into the others
-OPS_PARTIAL_ROUND = (4 * OPS_MUL + OPS_ADD + (2 + 11)
-                     + 22 * OPS_MUL + 22 * OPS_ADD)  # 671
-# 8 full rounds, 22 partial rounds (the last adds no constant): 29,540
+# full-size constants, 11 dot products of 11 terms:
+# 72 + 11 x (11 x 15 + 14) = 2041 (3152 when every product was reduced),
+# of which 121 x 8 = 968 multiplies
+OPS_PARTIAL_ENTRY = 12 * OPS_ADD + 11 * ops_dot(11)  # 2041
+MUL_PARTIAL_ENTRY = 11 * 11 * MUL_PRODUCT  # 968
+# a partial round: one x^7 (80), one constant add (6); word 0 is
+# 25 * s0 (a small-constant term: 4 multiplies into the sum) plus the W_HATS
+# row, one dot product of 11 terms (4 + 179); each of the 11 other words is
+# s_i + s0 * VS_i, a product, s_i added into its 128 bits, one reduction
+# (11 x 25): 80 + 6 + 183 + 275 = 544 (671 when every product was reduced),
+# of which 4 x 8 + 4 + 11 x 8 + 11 x 8 = 212 multiplies
+OPS_PARTIAL_ROUND = (4 * OPS_MUL + OPS_ADD + MUL_MDS_TERM + ops_dot(11)
+                     + 11 * (OPS_PRODUCT + OPS_ACCUMULATE + OPS_REDUCE))  # 544
+MUL_PARTIAL_ROUND = 4 * MUL_PRODUCT + MUL_MDS_TERM + 2 * 11 * MUL_PRODUCT  # 212
+# 8 full rounds, 22 partial rounds (the last adds no constant):
+# 8 x 1744 + 2041 + 22 x 544 - 6 = 27,955 operations, of which
+# 8 x 964 + 968 + 22 x 212 = 13,344 multiplies. Per SM and clock that is
+# 13,344 / 64 = 208.5 clocks on the multiply pipe and 27,955 / 128 = 218.4
+# clocks of issue: the issue rate bounds it, 0.2188 ms at (12, 2^18).
 OPS_POSEIDON = (8 * OPS_FULL_ROUND + OPS_PARTIAL_ENTRY
                 + 22 * OPS_PARTIAL_ROUND - OPS_ADD)
+MUL_POSEIDON = 8 * MUL_FULL_ROUND + MUL_PARTIAL_ENTRY + 22 * MUL_PARTIAL_ROUND
 
 
 def log(*args):
@@ -128,15 +172,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, int_ops: float) -> dict:
+def bound(nbytes: float, int_ops: float, mul: float = 0, alu: float = 0) -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory's rate, or the 32-bit integer
-    operations at their issue rate, whichever is larger."""
+    operations at their rates, whichever is larger. Of the `int_ops`, `mul`
+    run only on the multiply pipe and `alu` only on the ALU pipe; the rest
+    issue on either."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    by_ops = max(mul / PEAK_PIPE_OPS_PER_S, alu / PEAK_PIPE_OPS_PER_S,
+                 int_ops / PEAK_ISSUE_OPS_PER_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": nbytes, "int32_ops": int_ops}
+            "bytes": nbytes, "int32_ops": int_ops, "mul_ops": mul,
+            "alu_ops": alu}
 
 
 def max_abs_err(a, b) -> int:
@@ -196,9 +244,10 @@ def check_kernels(device, rng) -> dict:
     a, b = gf.from_u64(av, device), gf.from_u64(bv, device)
     grid = gf.from_u64(np.repeat(edge, 5), device)
     grid_t = gf.from_u64(np.tile(edge, 5), device)
-    for name, fn, plain, ops in (("gf_mul", gf.mul, gf.mul_plain, OPS_MUL),
-                                 ("gf_add", gf.add, gf.add_plain, OPS_ADD),
-                                 ("gf_sub", gf.sub, gf.sub_plain, OPS_ADD)):
+    for name, fn, plain, ops, mul in (
+            ("gf_mul", gf.mul, gf.mul_plain, OPS_MUL, MUL_PRODUCT),
+            ("gf_add", gf.add, gf.add_plain, OPS_ADD, 0),
+            ("gf_sub", gf.sub, gf.sub_plain, OPS_ADD, 0)):
         err = max_abs_err(fn(a, b), plain(a, b))
         err = max(err, max_abs_err(fn(grid, grid_t), plain(grid, grid_t)))
         for v in edge:
@@ -207,7 +256,7 @@ def check_kernels(device, rng) -> dict:
                       max_abs_err(fn(s, b), plain(s, b)))
         ms = cuda_ms(lambda: fn(a, b), 20)
         plain_ms = cuda_ms(lambda: plain(a, b), 5)
-        record(name, err, ms, plain_ms, bound(24 * n, ops * n),
+        record(name, err, ms, plain_ms, bound(24 * n, ops * n, mul * n),
                "2^24 elements, edge grid, 0-dim operand on each side")
     del a, b
 
@@ -240,7 +289,8 @@ def check_kernels(device, rng) -> dict:
             products = butterflies - shape[0] * (shape[1] - 1)
             times["least"] = bound(
                 16 * count + 4 * shape[1],
-                butterflies * 2 * OPS_ADD + products * OPS_MUL)
+                butterflies * 2 * OPS_ADD + products * OPS_MUL,
+                products * MUL_PRODUCT)
         del x
     want = {k: 1 if k <= 13 else 2 if k <= 20 else 3 for k in passes}
     if passes != want:
@@ -250,18 +300,31 @@ def check_kernels(device, rng) -> dict:
            "forward+inverse at (3,2^k) k=1..20, (1,2^k) k=21..24, (5,1024) "
            "(134,1024) (94,2^20) (16,2^23) (18,2^24); times at (16,2^23)")
 
-    # K2: the PoW grind's batch, plus host numpy parity
+    # K2: the PoW grind's batch against the plain version; the edge states
+    # against both the plain version and permute_np, and 64 random states
+    # against permute_np; the MDS tables are compiled in, so init must
+    # refuse others
     st = rand((pos.WIDTH, 1 << 18))
     err = max_abs_err(pos.permute(st), pos.permute_plain(st))
-    host = rng.integers(0, gf.P, (64, pos.WIDTH), dtype=np.uint64)
+    edge_st = gf.from_u64(pos.edge_states().T.copy(), device)
+    err = max(err, max_abs_err(pos.permute(edge_st), pos.permute_plain(edge_st)))
+    host = np.concatenate([pos.edge_states(), rng.integers(
+        0, gf.P, (64, pos.WIDTH), dtype=np.uint64)])
     got = gf.to_u64(pos.permute(gf.from_u64(host.T.copy(), device))).T
     if not np.array_equal(got, pos.permute_np(host)):
         raise AssertionError("poseidon kernel disagrees with permute_np")
+    tables = pos._kernel_tables()
+    tables[1] = tables[1] + np.uint64(1)
+    if kernels.lib("poseidon").gl_poseidon_init(*[t.ctypes.data for t in tables]) != -1:
+        raise AssertionError("gl_poseidon_init took MDS tables other than its own")
     ms = cuda_ms(lambda: pos.permute(st), 20)
     plain_ms = cuda_ms(lambda: pos.permute_plain(st), 3)
     record("poseidon", err, ms, plain_ms,
-           bound(2 * 8 * pos.WIDTH * (1 << 18), OPS_POSEIDON * (1 << 18)),
-           "(12,2^18) vs plain; 64 states vs permute_np")
+           bound(2 * 8 * pos.WIDTH * (1 << 18), OPS_POSEIDON * (1 << 18),
+                 MUL_POSEIDON * (1 << 18)),
+           "(12,2^18) vs plain; edge states (all 0, p-1, 2^32-1, 2^32, "
+           "2^64-2^32-1; 0 and p-1 alternating) vs plain and permute_np; 64 "
+           "random states vs permute_np; init refuses another MDS table")
     del st
 
     # K4: leaf digests at every block structure (noop leaves, a partial last
@@ -283,7 +346,8 @@ def check_kernels(device, rng) -> dict:
     plain_ms = cuda_ms(lambda: dmerkle.leaf_digests_plain(lde), 1)
     compressions = (C + 7) // 8 + (1 if C > dmerkle.CHUNK_COLS else 0)
     record("blake3_leaves", err, ms, plain_ms,
-           bound(8 * C * n + 64 * n, OPS_BLAKE3 * compressions * n),
+           bound(8 * C * n + 64 * n, OPS_BLAKE3 * compressions * n,
+                 alu=ALU_BLAKE3 * compressions * n),
            f"C in {widths} at n=1000; (94,2^23) with times")
     del lde
 
@@ -296,7 +360,8 @@ def check_kernels(device, rng) -> dict:
     ms = cuda_ms(lambda: dmerkle.compress_level(digs), 10)
     plain_ms = cuda_ms(lambda: dmerkle.compress_level_plain(digs), 3)
     record("blake3_level", err, ms, plain_ms,
-           bound(64 * n + 32 * n, OPS_BLAKE3 * (n // 2)),
+           bound(64 * n + 32 * n, OPS_BLAKE3 * (n // 2),
+                 alu=ALU_BLAKE3 * (n // 2)),
            "(8,2) and (8,2^23) -> (8,2^22); times at 2^23")
     del digs
     torch.cuda.synchronize()

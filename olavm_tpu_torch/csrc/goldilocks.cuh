@@ -1,11 +1,20 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) for device code.
 //
-// Elements are canonical uint64 values (< p). A CUDA thread has a native
-// 64-bit multiply (__umul64hi gives the high half), so one element is one
-// word; the (lo, hi) u32 pair of olavm_tpu/field/gf.py exists only because
-// the TPU has no 64-bit multiply. The reduction is the EPSILON trick of
+// Elements are canonical uint64 values (< p), one word each; the (lo, hi)
+// u32 pair of olavm_tpu/field/gf.py exists only because the TPU has no
+// 64-bit multiply. The reduction is the EPSILON trick of
 // olavm_tpu/field/gf.py:_reduce128 (plonky2 goldilocks_field.rs reduce128):
 // 2^64 == EPSILON and 2^96 == -1 (mod p).
+//
+// The card has no 64-bit integer multiply: a 64x64->128 product is built
+// from 32-bit multiply-adds. `mul_wide` writes that chain in PTX (nine
+// instructions with the carry flag); the carry-chained accumulate `acc_add`
+// lets a dot product add its unreduced products into a 160-bit sum and
+// reduce once; the reduction itself is two carry chains (`sub_small`,
+// `add_eps`) in place of 64-bit compares and selects. Each PTX helper sits
+// behind __CUDA_ARCH__ with a plain (unsigned __int128) twin, so that this
+// file and poseidon_perm.cuh compile with a host compiler and can be checked
+// on a machine without a card.
 #pragma once
 
 #include <cstdint>
@@ -15,9 +24,21 @@ namespace gl {
 constexpr uint64_t P = 0xFFFFFFFF00000001ull;
 constexpr uint64_t EPSILON = 0xFFFFFFFFull;
 
+// a 128-bit value, lo + hi * 2^64
+struct u128 {
+  uint64_t lo, hi;
+};
+
+// a sum of up to 2^32 products: lo + hi * 2^64 + top * 2^128
+struct u160 {
+  uint64_t lo, hi;
+  uint32_t top;
+};
+
+// a + b mod p, canonical, for any 64-bit a and canonical b
 __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
   uint64_t s = a + b;
-  // a, b < p: on carry, s + EPSILON < p cannot carry again
+  // on carry s <= p - 2, so s + EPSILON < 2^64 cannot carry again
   s += (s < a) ? EPSILON : 0;
   return s >= P ? s - P : s;
 }
@@ -28,26 +49,161 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   return (a < b) ? d - EPSILON : d;
 }
 
+// any 64-bit word to its canonical residue
+__device__ __forceinline__ uint64_t canonical(uint64_t x) {
+  return x >= P ? x - P : x;
+}
+
+// The helpers below return a residue below 2^64 that is not always
+// canonical ("lazy"): enough for an operand of a product, of a sum, or of
+// `add`, and `canonical` ends such a chain.
+
+// x - k mod p, lazy, for k < 2^32
+__device__ __forceinline__ uint64_t sub_small(uint64_t x, uint32_t k) {
+#ifdef __CUDA_ARCH__
+  uint32_t x0 = static_cast<uint32_t>(x), x1 = static_cast<uint32_t>(x >> 32);
+  // on borrow (x < k) take EPSILON = 2^64 mod p off as well: x - k + 2^64
+  // >= 2^64 - 2^32 + 1, so this cannot borrow again
+  asm("{\n\t.reg .u32 bw;\n\t"
+      "sub.cc.u32  %0, %0, %2;\n\t"
+      "subc.cc.u32 %1, %1, 0;\n\t"
+      "subc.u32    bw, 0, 0;\n\t"
+      "sub.cc.u32  %0, %0, bw;\n\t"
+      "subc.u32    %1, %1, 0;\n\t}"
+      : "+r"(x0), "+r"(x1)
+      : "r"(k));
+  return (static_cast<uint64_t>(x1) << 32) | x0;
+#else
+  const uint64_t d = x - k;
+  return x < k ? d - EPSILON : d;
+#endif
+}
+
+// x + k * EPSILON mod p (x + k * 2^64), lazy, for k < 2^32
+__device__ __forceinline__ uint64_t add_eps(uint64_t x, uint32_t k) {
+#ifdef __CUDA_ARCH__
+  uint32_t x0 = static_cast<uint32_t>(x), x1 = static_cast<uint32_t>(x >> 32);
+  // on carry the sum wrapped below k * EPSILON <= 2^64 - 2^33 + 1, so adding
+  // EPSILON for the carry cannot carry again
+  asm("{\n\t.reg .u32 cy;\n\t"
+      "mad.lo.cc.u32  %0, %2, %3, %0;\n\t"
+      "madc.hi.cc.u32 %1, %2, %3, %1;\n\t"
+      "addc.u32       cy, 0, 0;\n\t"
+      "mad.lo.cc.u32  %0, cy, %3, %0;\n\t"
+      "madc.hi.u32    %1, cy, %3, %1;\n\t}"
+      : "+r"(x0), "+r"(x1)
+      : "r"(k), "r"(static_cast<uint32_t>(EPSILON)));
+  return (static_cast<uint64_t>(x1) << 32) | x0;
+#else
+  const uint64_t t = static_cast<uint64_t>(k) * EPSILON;
+  const uint64_t r = x + t;
+  return r < t ? r + EPSILON : r;
+#endif
+}
+
+// lo + hi * 2^64, any 128-bit value, lazy: 2^64 = EPSILON, 2^96 = -1
+__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
+  return add_eps(sub_small(lo, static_cast<uint32_t>(hi >> 32)),
+                 static_cast<uint32_t>(hi));
+}
+
 __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
-  uint64_t hi_hi = hi >> 32;
-  uint64_t hi_lo = hi & EPSILON;
-  uint64_t t0 = lo - hi_hi;
-  if (lo < hi_hi) t0 -= EPSILON;  // cannot underflow
-  uint64_t t1 = hi_lo * EPSILON;  // < 2^64
-  uint64_t t2 = t0 + t1;
-  t2 += (t2 < t0) ? EPSILON : 0;  // cannot carry again
-  return t2 >= P ? t2 - P : t2;
+  return canonical(reduce128_lazy(lo, hi));
+}
+
+// lo + hi * 2^32 for hi < 2^63, lazy
+__device__ __forceinline__ uint64_t reduce_shifted_lazy(uint64_t lo, uint64_t hi) {
+#ifdef __CUDA_ARCH__
+  uint32_t x1 = static_cast<uint32_t>(lo >> 32), h1 = static_cast<uint32_t>(hi >> 32);
+  asm("add.cc.u32 %0, %0, %2;\n\t"
+      "addc.u32   %1, %1, 0;"
+      : "+r"(x1), "+r"(h1)
+      : "r"(static_cast<uint32_t>(hi)));
+  return add_eps((static_cast<uint64_t>(x1) << 32) | static_cast<uint32_t>(lo), h1);
+#else
+  const uint64_t l = lo + (hi << 32);
+  return add_eps(l, static_cast<uint32_t>((hi >> 32) + (l < lo)));
+#endif
+}
+
+// acc + a * b for 32-bit a and b: one multiply-add on the card, also when b
+// is a compile-time constant (the compiler would otherwise turn a small
+// constant into 64-bit shifts and adds)
+__device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint32_t b, uint64_t acc) {
+#ifdef __CUDA_ARCH__
+  asm("mad.wide.u32 %0, %1, %2, %0;" : "+l"(acc) : "r"(a), "r"(b));
+  return acc;
+#else
+  return acc + static_cast<uint64_t>(a) * b;
+#endif
+}
+
+// a * b as 128 bits, a and b any 64-bit words
+__device__ __forceinline__ u128 mul_wide(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  const uint32_t a0 = static_cast<uint32_t>(a), a1 = static_cast<uint32_t>(a >> 32);
+  const uint32_t b0 = static_cast<uint32_t>(b), b1 = static_cast<uint32_t>(b >> 32);
+  uint32_t r0, r1, r2, r3;
+  // schoolbook on 32-bit limbs: a0b0 + (a0b1 + a1b0) 2^32 + a1b1 2^64
+  asm("mul.lo.u32     %0, %4, %6;\n\t"
+      "mul.hi.u32     %1, %4, %6;\n\t"
+      "mad.lo.cc.u32  %1, %4, %7, %1;\n\t"
+      "madc.hi.u32    %2, %4, %7, 0;\n\t"
+      "mad.lo.cc.u32  %1, %5, %6, %1;\n\t"
+      "madc.hi.cc.u32 %2, %5, %6, %2;\n\t"
+      "madc.hi.u32    %3, %5, %7, 0;\n\t"
+      "mad.lo.cc.u32  %2, %5, %7, %2;\n\t"
+      "addc.u32       %3, %3, 0;"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(a0), "r"(a1), "r"(b0), "r"(b1));
+  return {(static_cast<uint64_t>(r1) << 32) | r0,
+          (static_cast<uint64_t>(r3) << 32) | r2};
+#else
+  const unsigned __int128 w = static_cast<unsigned __int128>(a) * b;
+  return {static_cast<uint64_t>(w), static_cast<uint64_t>(w >> 64)};
+#endif
+}
+
+// acc += x, with the carry out of 128 bits into acc.top
+__device__ __forceinline__ void acc_add(u160& acc, u128 x) {
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u64  %0, %0, %3;\n\t"
+      "addc.cc.u64 %1, %1, %4;\n\t"
+      "addc.u32    %2, %2, 0;"
+      : "+l"(acc.lo), "+l"(acc.hi), "+r"(acc.top)
+      : "l"(x.lo), "l"(x.hi));
+#else
+  const unsigned __int128 s =
+      ((static_cast<unsigned __int128>(acc.hi) << 64) | acc.lo) +
+      ((static_cast<unsigned __int128>(x.hi) << 64) | x.lo);
+  acc.top += s < ((static_cast<unsigned __int128>(x.hi) << 64) | x.lo);
+  acc.lo = static_cast<uint64_t>(s);
+  acc.hi = static_cast<uint64_t>(s >> 64);
+#endif
+}
+
+// lo + hi * 2^64 + top * 2^128, lazy: top * 2^64 folds into hi as
+// top * EPSILON
+__device__ __forceinline__ uint64_t reduce160_lazy(u160 x) {
+  return reduce128_lazy(x.lo, add_eps(x.hi, x.top));
 }
 
 __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  return reduce128(a * b, __umul64hi(a, b));
+  const u128 w = mul_wide(a, b);
+  return reduce128(w.lo, w.hi);
 }
 
-__device__ __forceinline__ uint64_t pow7(uint64_t x) {
-  uint64_t x2 = mul(x, x);
-  uint64_t x4 = mul(x2, x2);
-  uint64_t x3 = mul(x, x2);
-  return mul(x3, x4);
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  const u128 w = mul_wide(a, b);
+  return reduce128_lazy(w.lo, w.hi);
+}
+
+// x^7, lazy
+__device__ __forceinline__ uint64_t pow7_lazy(uint64_t x) {
+  const uint64_t x2 = mul_lazy(x, x);
+  const uint64_t x4 = mul_lazy(x2, x2);
+  const uint64_t x3 = mul_lazy(x, x2);
+  return mul_lazy(x3, x4);
 }
 
 // grid for a grid-stride loop over n items: enough blocks to fill 132 SMs

@@ -5,7 +5,8 @@ Two parts:
 - the numpy host half, carried from olavm_tpu/hash/poseidon.py:75-240
   unchanged (trace generation, challenger, SMT hashing);
 - a torch permutation over (12, n) states: on a CUDA tensor it launches K2
-  (csrc/poseidon.cu); on a CPU tensor it runs the plain version,
+  (csrc/poseidon.cu, whose MDS constants are compiled in and checked against
+  the tables here at its first use); on a CPU tensor it runs the plain version,
   `permute_plain`, which follows permute_stacked_gf_unrolled
   (olavm_tpu/hash/poseidon.py:417-468) with the plain field ops.
 
@@ -253,6 +254,16 @@ def _kernel_tables():
         FAST_PARTIAL_ROUND_INITIAL_MATRIX)]
 
 
+def edge_states() -> np.ndarray:
+    """(7, 12) states at the ends of the kernel's reductions, for its checks:
+    all words 0, p-1, 2^32-1, 2^32, the largest low limb under p; 0 and p-1
+    alternating, in both phases."""
+    p = g.P
+    rows = [[w] * WIDTH for w in (0, p - 1, 2**32 - 1, 2**32, 0xFFFFFFFEFFFFFFFF)]
+    rows += [[0, p - 1] * (WIDTH // 2), [p - 1, 0] * (WIDTH // 2)]
+    return np.array(rows, dtype=np.uint64)
+
+
 _KERNEL_READY: set = set()
 
 
@@ -262,8 +273,11 @@ def _poseidon_lib(device):
     if key not in _KERNEL_READY:
         tables = _kernel_tables()
         with torch.cuda.device(device):
-            kernels.check(lib.gl_poseidon_init(
-                *[t.ctypes.data for t in tables]), "poseidon init")
+            rc = lib.gl_poseidon_init(*[t.ctypes.data for t in tables])
+        if rc == -1:
+            raise RuntimeError("poseidon init: the MDS tables differ from the "
+                               "constants compiled into csrc/poseidon_perm.cuh")
+        kernels.check(rc, "poseidon init")
         _KERNEL_READY.add(key)
     return lib
 

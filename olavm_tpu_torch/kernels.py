@@ -85,11 +85,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or than any header in
+    csrc/ (a source may include any of them)."""
     lib = _lib_path(name)
     if not lib.exists():
         return True
     newest = max(p.stat().st_mtime for p in
-                 [CSRC / f"{name}.cu", CSRC / "goldilocks.cuh"])
+                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
     return lib.stat().st_mtime < newest
 
 

@@ -138,13 +138,25 @@ def test_blake3_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_poseidon_kernel_matches_plain_and_numpy(dev):
-    states = _rand((300, 12), 5)
-    states[0] = 0
+    states = np.concatenate([tpos.edge_states(), _rand((300, 12), 5)])
     out = tpos.permute(convert.from_u64(states.T.copy(), dev))
     assert torch.equal(out, tpos.permute_plain(convert.from_u64(states.T.copy(),
                                                                 dev)))
     np.testing.assert_array_equal(convert.to_u64(out).T,
                                   jpos.permute_np(states))
+
+
+@pytest.mark.parametrize("table", [1, 2])
+def test_poseidon_init_refuses_other_mds_tables(dev, table):
+    tpos.permute(convert.from_u64(_rand((12, 4), 1), dev))  # initialised
+    tables = tpos._kernel_tables()
+    tables[table][3] += 1
+    lib = kernels.lib("poseidon")
+    assert lib.gl_poseidon_init(*[t.ctypes.data for t in tables]) == -1
+    # nothing was copied: the kernel still permutes with its own tables
+    states = _rand((64, 12), 6)
+    out = tpos.permute(convert.from_u64(states.T.copy(), dev))
+    np.testing.assert_array_equal(convert.to_u64(out).T, jpos.permute_np(states))
 
 
 def test_toy_proof_through_kernels_equals_host(dev):

@@ -180,7 +180,7 @@ def test_port_import_leaves_reference_native_alone():
 
 def _port_sources():
     paths = [os.path.join(ROOT, name) for name in
-             ("chip_smoke.py", "chip_profile.py", "chip_ntt_times.py")]
+             ("chip_smoke.py", "chip_profile.py", "chip_kernel_times.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "olavm_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return paths

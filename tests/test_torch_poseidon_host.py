@@ -1,0 +1,179 @@
+"""K2's arithmetic on the host: olavm_tpu_torch/csrc/poseidon_perm.cuh (and
+the goldilocks.cuh it includes) compiled with g++ through a stub header that
+defines the CUDA qualifiers away, so the device functions' unsigned __int128
+twins stand in for their PTX. The permutation is held bit-exact against the
+port's permute_np and olavm_tpu's, at random and edge states; the MDS check
+of gl_poseidon_init must refuse tables that differ from the compiled
+constants; the reductions are held against Python integers at the ends of
+their input ranges. Takes seconds; skips only where g++ is absent."""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from olavm_tpu.hash import poseidon as jpos
+from olavm_tpu_torch import kernels
+from olavm_tpu_torch.hash import poseidon as tpos
+
+P = 2**64 - 2**32 + 1
+M64 = 2**64 - 1
+
+STUB = """
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __constant__
+"""
+
+# gl_poseidon_init's check and copies, and the kernel's loop, on the host
+HOST_SOURCE = """
+#include <cstring>
+#include "poseidon_perm.cuh"
+
+using namespace poseidon;
+
+extern "C" int k2_init(const uint64_t* rc, const uint64_t* circ,
+                       const uint64_t* diag, const uint64_t* first,
+                       const uint64_t* prc, const uint64_t* vs,
+                       const uint64_t* wh, const uint64_t* init) {
+  if (mds_mismatch(circ, diag)) return -1;
+  std::memcpy(c_rc, rc, sizeof(c_rc));
+  std::memcpy(c_first, first, sizeof(c_first));
+  std::memcpy(c_prc, prc, sizeof(c_prc));
+  std::memcpy(c_vs, vs, sizeof(c_vs));
+  std::memcpy(c_wh, wh, sizeof(c_wh));
+  std::memcpy(c_init, init, sizeof(c_init));
+  return 0;
+}
+
+extern "C" void k2_permute(const uint64_t* in, uint64_t* out, int64_t n) {
+  for (int64_t lane = 0; lane < n; ++lane) {
+    uint64_t s[WIDTH];
+    for (int i = 0; i < WIDTH; ++i) s[i] = in[i * n + lane];
+    permute(s);
+    for (int i = 0; i < WIDTH; ++i) out[i * n + lane] = s[i];
+  }
+}
+
+extern "C" uint64_t k2_reduce_shifted(uint64_t lo, uint64_t hi) {
+  return gl::reduce_shifted_lazy(lo, hi);
+}
+
+extern "C" uint64_t k2_reduce160(uint64_t lo, uint64_t hi, uint32_t top) {
+  return gl::reduce160_lazy({lo, hi, top});
+}
+
+extern "C" uint64_t k2_reduce128(uint64_t lo, uint64_t hi) {
+  return gl::reduce128_lazy(lo, hi);
+}
+
+extern "C" uint64_t k2_mul(uint64_t a, uint64_t b) { return gl::mul(a, b); }
+
+extern "C" void k2_mul_small(uint64_t a, uint32_t c, uint64_t* out) {
+  const gl::u128 w = mul_small(a, c);
+  out[0] = w.lo;
+  out[1] = w.hi;
+}
+
+extern "C" uint64_t k2_dot(const uint64_t* a, const uint64_t* b, int n) {
+  gl::u160 acc = {0, 0, 0};
+  for (int i = 0; i < n; ++i) gl::acc_add(acc, gl::mul_wide(a[i], b[i]));
+  return gl::reduce160_lazy(acc);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k2(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    d = tmp_path_factory.mktemp("k2_host")
+    (d / "stub.h").write_text(STUB)
+    (d / "k2_host.cpp").write_text(HOST_SOURCE)
+    so = d / "libk2host.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", "-I", str(kernels.CSRC),
+                    "-include", str(d / "stub.h"), str(d / "k2_host.cpp"),
+                    "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, u64, u32 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32
+    lib.k2_init.argtypes = [vp] * 8
+    lib.k2_permute.argtypes = [vp, vp, ctypes.c_int64]
+    lib.k2_permute.restype = None
+    lib.k2_reduce_shifted.argtypes = [u64, u64]
+    lib.k2_reduce160.argtypes = [u64, u64, u32]
+    lib.k2_reduce128.argtypes = [u64, u64]
+    lib.k2_mul.argtypes = [u64, u64]
+    lib.k2_mul_small.argtypes = [u64, u32, vp]
+    lib.k2_mul_small.restype = None
+    lib.k2_dot.argtypes = [vp, vp, ctypes.c_int]
+    for fn in ("k2_reduce_shifted", "k2_reduce160", "k2_reduce128", "k2_mul",
+               "k2_dot"):
+        getattr(lib, fn).restype = u64
+    tables = tpos._kernel_tables()
+    assert lib.k2_init(*[t.ctypes.data for t in tables]) == 0
+    return lib
+
+
+def permute_host(lib, states: np.ndarray) -> np.ndarray:
+    """(k, 12) states through the compiled header, as the kernel lays them
+    out: (12, k) rows."""
+    cols = np.ascontiguousarray(states.T, dtype=np.uint64)
+    out = np.empty_like(cols)
+    lib.k2_permute(cols.ctypes.data, out.ctypes.data, cols.shape[1])
+    return out.T
+
+
+def test_permutation_matches_numpy(k2):
+    rng = np.random.default_rng(4)
+    states = np.concatenate([
+        tpos.edge_states(),
+        rng.integers(0, P, size=(4096, tpos.WIDTH), dtype=np.uint64)])
+    got = permute_host(k2, states)
+    np.testing.assert_array_equal(got, tpos.permute_np(states))
+    np.testing.assert_array_equal(got, jpos.permute_np(states))
+
+
+@pytest.mark.parametrize("table", [1, 2])
+def test_init_refuses_other_mds_tables(k2, table):
+    tables = tpos._kernel_tables()
+    for i in (0, 11):
+        wrong = [t.copy() for t in tables]
+        wrong[table][i] += 1
+        assert k2.k2_init(*[t.ctypes.data for t in wrong]) == -1
+    assert k2.k2_init(*[t.ctypes.data for t in tables]) == 0
+
+
+def _lazy(got: int, value: int) -> bool:
+    """A lazy residue: below 2^64 and congruent to value mod p."""
+    return got <= M64 and got % P == value % P
+
+
+def test_reductions_at_the_ends_of_their_ranges(k2):
+    # the MDS sums: each below 264 * 2^32
+    top = 264 * (2**32 - 1)
+    for lo in (0, 1, top, 2**32 - 1):
+        for hi in (0, 1, top, 2**32, 2**32 - 1, (2**32 - 1) * 255):
+            assert _lazy(k2.k2_reduce_shifted(lo, hi), lo + (hi << 32))
+    for lo in (0, 1, 2**32 - 1, 2**32, P - 1, P, M64 - 2**32, M64):
+        for hi in (0, 1, 2**32 - 1, 2**32, P - 1, P, 2**64 - 2**32, M64):
+            assert _lazy(k2.k2_reduce128(lo, hi), lo + (hi << 64))
+            # 160-bit sums of up to 12 products
+            for t in (0, 1, 11, 12):
+                assert _lazy(k2.k2_reduce160(lo, hi, t),
+                             lo + (hi << 64) + (t << 128))
+    words = (0, 1, P - 1, P, 2**32 - 1, 2**32, 0xFFFFFFFEFFFFFFFF, M64)
+    buf = np.zeros(2, dtype=np.uint64)
+    for a in words:
+        for b in words:
+            assert k2.k2_mul(a, b) == (a * b) % P
+        for c in (1, 25, 49):
+            k2.k2_mul_small(a, c, buf.ctypes.data)
+            assert int(buf[0]) + (int(buf[1]) << 64) == a * c
+    # a dot product of 12 largest words: the 160-bit sum's carries
+    for w in (P - 1, M64):
+        v = np.full(12, w, dtype=np.uint64)
+        assert _lazy(k2.k2_dot(v.ctypes.data, v.ctypes.data, 12), 12 * w * w)
