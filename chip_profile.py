@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where a full-size prove of the PyTorch port spends the card's time.
 
-    python3 chip_profile.py            # needs one CUDA card; builds the kernels
+    python3 chip_profile.py [--hasher blake3|poseidon]   # needs one CUDA card
 
-Proves the fib-loop fixture at N=94000 (2^20 CPU rows, chip_smoke.py's
-full-size run) four times in one process: the first prove and two warm
+Builds the kernels, then proves the fib-loop fixture at N=94000 (2^20 CPU
+rows, chip_smoke.py's full-size run) with the given Merkle hasher (blake3
+by default) four times in one process: the first prove and two warm
 proves untraced, timed on the host clock around torch.cuda.synchronize(),
 then one under torch.profiler with CUDA activities only. From the trace it
 sums the device time of every kernel by name and counts the kernels. That
@@ -14,11 +15,12 @@ twice: `busy_share_traced` is the sum over the traced prove's own seconds (one
 run, but the denominator holds the profiler's cost), `busy_share_warm` is the
 sum over each untraced warm prove's seconds, as a [low, high] range. Prints one
 JSON object as the last line and writes the same, with the kernel table, to
-chip_smoke_out/profile.json.
+chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon).
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -31,6 +33,10 @@ TOP_KERNELS = 25
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--hasher", choices=["blake3", "poseidon"],
+                    default="blake3", help="Merkle hasher of the prove")
+    args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
 
@@ -54,7 +60,7 @@ def main() -> int:
     seconds = []
     for _ in range(3):
         kernels.reset_launches()
-        proof, s = prove(device)
+        proof, s, _ = prove(device, merkle_hasher=args.hasher)
         seconds.append(s)
         print(f"untraced prove {s:.3f} s", file=sys.stderr, flush=True)
     launches = dict(kernels.LAUNCHES)
@@ -63,7 +69,7 @@ def main() -> int:
     del proof
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, traced_seconds = prove(device)
+        _, traced_seconds, _ = prove(device, merkle_hasher=args.hasher)
     rows = [(e.key, e.count, getattr(e, "device_time_total", None)
              or getattr(e, "cuda_time_total", 0.0))
             for e in prof.key_averages()]
@@ -76,6 +82,7 @@ def main() -> int:
         "card": smi,
         "torch": torch.__version__,
         "N": chip_smoke.FULL_N,
+        "merkle_hasher": args.hasher,
         "prove_seconds_untraced": seconds,
         "prove_seconds_traced": traced_seconds,
         "warm_prove_seconds": statistics.median(warm),
@@ -95,7 +102,8 @@ def main() -> int:
               file=sys.stderr)
     out_dir = os.path.join(ROOT, "chip_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile.json"), "w") as f:
+    name = "profile.json" if args.hasher == "blake3" else "profile_poseidon.json"
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump({**result, "top_kernels": table}, f, indent=1)
     print(json.dumps(result))
     return 0

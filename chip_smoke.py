@@ -13,18 +13,29 @@ without printing a result:
    CUDA-event times of both and the least time the card could take for the
    same work (`bound_ms`, from the shapes of this run);
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
-   card must serialize to the sha256 and length of the golden that
-   olavm_tpu's host prover produced, and the port's verifier must accept it;
+   card with blake3 and then with Poseidon Merkle caps (one trace
+   generation) must serialize to the sha256 and length of the goldens that
+   olavm_tpu's host prover produced (tests/fixtures/fib_loop_golden.json,
+   fib_loop_golden_poseidon.json), and the port's verifier must accept both;
 4. full size: the fixture at N=94000 (2^20 CPU rows) through
-   run_program_fast -> generate_traces_fast -> prove_with_traces_device ->
-   verify_proof, with every kernel's launch count reset just before and read
-   just after; each kernel must have been launched.
+   run_program_fast -> generate_traces_fast, then prove_with_traces_device
+   -> verify_proof twice on those traces, with blake3 and with Poseidon
+   Merkle caps; every kernel's launch count is reset just before each prove
+   and read just after it. Each path must have launched its own kernels
+   (K1, K2, K3, add, sub and its hasher's leaf and level kernels) and no
+   kernel of the other hasher, and each proof must hash as it did before
+   (`FULL_SHA256`);
+5. the CLI on the card: ola-torch asm, run (calldata 0, 0), prove (its
+   default backend, the card) and verify at N=10, in this process through
+   olavm_tpu_torch.cli.main.main; the proof must equal
+   tests/fixtures/cli_fib_golden.json, which olavm_tpu's `ola` CLI wrote
+   with its host prover.
 
 At the end neither jax nor any module of olavm_tpu may have been loaded. The
-last lines are the full-size run's seconds, peak memory and launch counts,
-the `kernels` JSON line, the card's nvidia-smi line and the result line
-{"ok": true, "device": {...}}. A longer report goes to
-chip_smoke_out/report.json.
+last lines are the full-size runs' seconds, peak memory and launch counts,
+the `kernels` JSON line (launches summed over the two full-size runs), the
+card's nvidia-smi line and the result line {"ok": true, "device": {...}}. A
+longer report goes to chip_smoke_out/report.json.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 REPORT_DIR = os.path.join(ROOT, "chip_smoke_out")
 FULL_N = 94000  # 1,034,005 steps -> 2^20 CPU rows
 SEED = 0  # random kernel inputs
+# lanes at which the plain Poseidon Merkle versions are timed: at the full
+# 2^23 they would need (12, 12, 2^23) int64 temporaries (9.7 GB each)
+PLAIN_N = 1 << 16
 
 # The card's peaks for `bound_ms` (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
 # device memory, and 67 TFLOP/s of float32 outside the tensor cores, which is
@@ -149,6 +163,26 @@ def write_fib_program(n: int, directory: str) -> str:
     with open(path, "w") as f:
         json.dump(spec, f)
     return path
+
+
+def cli_stages(n: int, directory: str):
+    """The argv of the CLI's asm, run, prove and verify stages on the fib-loop
+    fixture at N=n with calldata 0, 0, all files in `directory` (the program
+    and the calldata are written there first). Returns (argvs by stage,
+    output paths by stage)."""
+    program = write_fib_program(n, directory)
+    calldata = os.path.join(directory, "calldata.txt")
+    with open(calldata, "w") as f:
+        f.write("0\n0\n")
+    out = {stage: os.path.join(directory, name) for stage, name in (
+        ("asm", "fib.bin.json"), ("run", "trace.json"), ("prove", "proof.bin"))}
+    argvs = {
+        "asm": ["asm", "-i", program, "-o", out["asm"]],
+        "run": ["run", "-i", out["asm"], "-a", calldata, "-o", out["run"]],
+        "prove": ["prove", "-i", out["run"], "-o", out["prove"]],
+        "verify": ["verify", "-i", out["prove"]],
+    }
+    return argvs, out
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +398,68 @@ def check_kernels(device, rng) -> dict:
                  alu=ALU_BLAKE3 * (n // 2)),
            "(8,2) and (8,2^23) -> (8,2^22); times at 2^23")
     del digs
+
+    # the Poseidon leaf sponge: every width class (a partial last chunk at
+    # 9, 17 and 134 = 16 x 8 + 6) at n = 2^14 with leaves of all p-1, all 0
+    # and the two alternating; the noop widths through leaf_digests; then
+    # the CpuStark LDE's shape with times, its first and last 2^14 leaves
+    # against the plain version (the plain version at full size would need
+    # (12, 12, 2^23) temporaries and minutes)
+    def rand_edges(shape):
+        x = rng.integers(0, gf.P, shape, dtype=np.uint64)
+        x[:, 0] = gf.P - 1
+        x[:, 1] = 0
+        x[0::2, 2] = gf.P - 1
+        x[1::2, 2] = 0
+        return gf.from_u64(x, device)
+
+    err = 0
+    small = 1 << 14
+    widths = (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 94, 134)
+    for C in widths:
+        cols = rand_edges((C, small))
+        err = max(err, max_abs_err(pos.leaves(cols), pos.leaves_plain(cols)))
+        if C <= dmerkle.NOOP_MAX:
+            err = max(err, max_abs_err(
+                dmerkle.leaf_digests(cols, "poseidon"),
+                dmerkle.leaf_digests(cols.cpu(), "poseidon").to(device)))
+    C, n = 94, 1 << 23
+    lde = rand_on_card((C, n))
+    digs = pos.leaves(lde)
+    for part in (slice(0, small), slice(n - small, n)):
+        err = max(err, max_abs_err(digs[:, part],
+                                   pos.leaves_plain(lde[:, part].contiguous())))
+    ms = cuda_ms(lambda: pos.leaves(lde), 3)
+    plain_cols = lde[:, :PLAIN_N].contiguous()
+    plain_ms = cuda_ms(lambda: pos.leaves_plain(plain_cols), 1)
+    perms = (C + pos.RATE - 1) // pos.RATE * n
+    record("poseidon_leaves", err, ms, plain_ms,
+           bound(8 * C * n + 64 * n, OPS_POSEIDON * perms, MUL_POSEIDON * perms),
+           f"C in {widths} at n=2^14 (edge leaves; C<=4 also through "
+           f"leaf_digests' noop rule); (94,2^23) with times, its first and "
+           f"last 2^14 leaves vs plain; plain timed at (94,{PLAIN_N})")
+    results["poseidon_leaves"]["plain_shape"] = [C, PLAIN_N]
+    del lde, plain_cols
+
+    # one Poseidon tree level: 2^16 -> 2^15 against the plain version, the
+    # smallest level, then 2^23 -> 2^22 over the digests above with times
+    level_in = pos.leaves(rand_edges((4, 1 << 16)))
+    err = max_abs_err(pos.level(level_in), pos.level_plain(level_in))
+    pair = level_in[:, :2].contiguous()
+    err = max(err, max_abs_err(pos.level(pair), pos.level_plain(pair)))
+    parents = pos.level(digs)
+    err = max(err, max_abs_err(parents[:, :small],
+                               pos.level_plain(digs[:, :2 * small].contiguous())))
+    ms = cuda_ms(lambda: pos.level(digs), 10)
+    plain_in = digs[:, :PLAIN_N].contiguous()
+    plain_ms = cuda_ms(lambda: pos.level_plain(plain_in), 2)
+    record("poseidon_level", err, ms, plain_ms,
+           bound(64 * n + 32 * n, OPS_POSEIDON * (n // 2),
+                 MUL_POSEIDON * (n // 2)),
+           f"(8,2^16) -> (8,2^15), (8,2) -> (8,1), the first 2^14 parents of "
+           f"(8,2^23) -> (8,2^22); times at 2^23, plain timed at {PLAIN_N}")
+    results["poseidon_level"]["plain_shape"] = [8, PLAIN_N]
+    del digs, parents, plain_in
     torch.cuda.synchronize()
     return results
 
@@ -403,9 +499,11 @@ def time_plain_steps(device, rng) -> dict:
 
 def prepare(n: int, workdir: str):
     """Execute the fib-loop fixture at N=n and generate its traces. Returns
-    (prove, report, (ola, config)): prove(device, timing=None) runs
-    prove_with_traces_device on those traces, ends with a synchronize and
-    returns (proof, seconds); report holds the sizes and the seconds so far."""
+    (prove, report, ola): prove(device, timing=None, merkle_hasher="blake3")
+    runs prove_with_traces_device on those traces with
+    standard_fast_config and that Merkle hasher, ends with a synchronize and
+    returns (proof, seconds, config); report holds the sizes and the seconds
+    so far."""
     import torch
 
     from olavm_tpu_torch.runtime.harness import run_program_fast
@@ -427,15 +525,16 @@ def prepare(n: int, workdir: str):
     seconds["trace_gen"] = time.perf_counter() - t0
     pre, post = program.trace.start_end_roots
     public_values = PublicValues(tuple(pre), tuple(post), 0)
-    config = StarkConfig.standard_fast_config()
 
-    def prove(device, timing=None):
+    def prove(device, timing=None, merkle_hasher="blake3"):
+        config = StarkConfig.standard_fast_config()
+        config.merkle_hasher = merkle_hasher
         t0 = time.perf_counter()
         proof = prove_with_traces_device(ola, config, traces,
                                          public_values=public_values,
                                          timing=timing, device=device)
         torch.cuda.synchronize()
-        return proof, time.perf_counter() - t0
+        return proof, time.perf_counter() - t0, config
 
     report = {
         "N": n,
@@ -445,23 +544,25 @@ def prepare(n: int, workdir: str):
                           "post_root": [int(x) for x in post]},
         "seconds": seconds,
     }
-    return prove, report, (ola, config)
+    return prove, report, ola
 
 
-def main_path(n: int, device, workdir: str):
-    """run_program_fast -> generate_traces_fast -> prove_with_traces_device
-    -> verify_proof on the fib-loop fixture; returns (proof bytes, report)."""
+def prove_and_verify(prepared, device, merkle_hasher: str):
+    """prove_with_traces_device -> verify_proof on prepare()'s traces with
+    one Merkle hasher; returns (proof bytes, report)."""
     import torch
 
     from olavm_tpu_torch.stark.prover_device import TimingTree
     from olavm_tpu_torch.stark.serialization import serialize_all_proof
     from olavm_tpu_torch.stark.verifier import verify_proof
 
-    prove, report, (ola, config) = prepare(n, workdir)
+    prove, prepared_report, ola = prepared
+    report = {**prepared_report, "merkle_hasher": merkle_hasher,
+              "seconds": dict(prepared_report["seconds"])}
     seconds = report["seconds"]
     torch.cuda.reset_peak_memory_stats()
     timing = TimingTree()
-    proof, seconds["prove"] = prove(device, timing)
+    proof, seconds["prove"], config = prove(device, timing, merkle_hasher)
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -476,6 +577,94 @@ def main_path(n: int, device, workdir: str):
         "prove_scopes": [[d, name, s] for d, name, s in timing.records],
     })
     return data, report
+
+
+def merkle_hash_counts(ola, table_shapes, config) -> dict:
+    """What one prove of tables of these (columns, rows) shapes hashes,
+    counted from the commits' shapes: per commit (trace, Z, quotient, each
+    FRI tree), the leaves of more than 4 elements and their sponge
+    permutations, ceil(C / 8) each, and the tree nodes above the cap, one
+    compression each. Equal for the two hashers, whose leaf rule is the same."""
+    rate_bits = config.fri_config.rate_bits
+    cap = 1 << config.fri_config.cap_height
+    ctl_zs = [0] * len(table_shapes)
+    for ctl in ola.cross_table_lookups:
+        for t in (*ctl.looking_tables, ctl.looked_table):
+            ctl_zs[t.table] += config.num_challenges
+    counts = {"leaf_launches": 0, "leaves": 0, "leaf_permutations": 0,
+              "compressions": 0}
+
+    def commit(C, n):
+        if C > 4:  # shorter leaves are their own digests
+            counts["leaf_launches"] += 1
+            counts["leaves"] += n
+            counts["leaf_permutations"] += -(-C // 8) * n
+        counts["compressions"] += max(n - cap, 0)
+
+    for i, (stark, (cols, rows)) in enumerate(zip(ola.starks, table_shapes)):
+        size = rows << rate_bits
+        commit(cols, size)
+        commit(stark.num_permutation_batches(config) + ctl_zs[i], size)
+        commit(stark.num_quotient_polys(config), size)
+        for arity_bits in config.fri_config.reduction_arity_bits(
+                rows.bit_length() - 1):
+            size >>= arity_bits  # leaves of `arity` extension values
+            commit(2 << arity_bits, size)
+    return counts
+
+
+def check_golden(report: dict, golden_file: str) -> None:
+    with open(os.path.join(FIXTURES, golden_file)) as f:
+        golden = json.load(f)
+    for key in ("N", "public_values", "proof_sha256", "proof_bytes"):
+        if report[key] != golden[key]:
+            raise AssertionError(
+                f"{golden_file}: proof {key} {report[key]!r} differs from the "
+                f"golden {golden[key]!r}")
+
+
+def cli_path(workdir: str) -> dict:
+    """asm -> run -> prove (default backend: the card) -> verify through the
+    port's CLI, in this process, on the fib-loop fixture at N=10 with
+    calldata 0, 0; the proof must equal cli_fib_golden.json. The CLI's own
+    output goes to stderr."""
+    import contextlib
+
+    from olavm_tpu_torch.cli.main import main as cli
+
+    with open(os.path.join(FIXTURES, "cli_fib_golden.json")) as f:
+        golden = json.load(f)
+    argvs, out = cli_stages(golden["N"], workdir)
+    seconds = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        for stage in ("asm", "run", "prove", "verify"):
+            t0 = time.perf_counter()
+            cli(argvs[stage])
+            seconds[stage] = time.perf_counter() - t0
+    with open(out["prove"], "rb") as f:
+        data = f.read()
+    got = {"proof_sha256": hashlib.sha256(data).hexdigest(),
+           "proof_bytes": len(data)}
+    for key, value in got.items():
+        if value != golden[key]:
+            raise AssertionError(f"CLI proof {key} {value!r} differs from "
+                                 f"cli_fib_golden.json's {golden[key]!r}")
+    return {**got, "seconds": seconds}
+
+
+# the kernels of each full-size path: each must launch on its own path, and
+# the other Merkle hasher's kernels must not
+SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub")
+PATH_KERNELS = {
+    "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level"),
+    "poseidon": SHARED_KERNELS + ("poseidon_leaves", "poseidon_level"),
+}
+# the proofs at N=94000: blake3's unchanged since the port's first slice,
+# Poseidon's since its first run on the card
+FULL_SHA256 = {
+    "blake3": "a51b8b3b86c295e4703676eb6f7b54ee717fb0450812c8d904361182d0d06206",
+    "poseidon": "4230d1e8fcc60daec573fbe6922745a0e149c57eaf59ec095360e78f912e7b32",
+}
 
 
 KERNELS = (
@@ -494,6 +683,10 @@ KERNELS = (
      "olavm_tpu/merkle/device.py:106", ("blake3_leaves",)),
     ("blake3_level", "cuda", "olavm_tpu_torch/csrc/blake3.cu",
      "olavm_tpu/hash/blake3.py:152", ("blake3_level",)),
+    ("poseidon_leaves", "cuda", "olavm_tpu_torch/csrc/poseidon.cu",
+     "olavm_tpu/merkle/device.py:42", ("poseidon_leaves",)),
+    ("poseidon_level", "cuda", "olavm_tpu_torch/csrc/poseidon.cu",
+     "olavm_tpu/merkle/device.py:186", ("poseidon_level",)),
 )
 
 
@@ -507,9 +700,11 @@ def run() -> int:
     jax_before = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
 
     from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.stark.config import StarkConfig
 
     device = torch.device("cuda", 0)
     report = {}
+    started = time.perf_counter()
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
 
@@ -531,41 +726,76 @@ def run() -> int:
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(SEED)
-    log("[2] kernels against their plain versions")
+    log(f"[2] kernels against their plain versions "
+        f"(at {time.perf_counter() - started:.1f} s)")
     report["kernels"] = check_kernels(device, rng)
     report["plain_steps_ms"] = time_plain_steps(device, rng)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as workdir:
-        # 3. parity with the JAX package's golden
-        with open(os.path.join(FIXTURES, "fib_loop_golden.json")) as f:
-            golden = json.load(f)
-        log(f"[3] golden parity at N={golden['N']}")
-        _, small = main_path(golden["N"], device, workdir)
-        for key in ("public_values", "proof_sha256", "proof_bytes"):
-            if small[key] != golden[key]:
-                raise AssertionError(
-                    f"N={golden['N']} proof {key} {small[key]!r} differs from "
-                    f"the golden {golden[key]!r}")
-        log(f"    proof {small['proof_bytes']} bytes, sha256 matches; verified "
-            f"({small['seconds']})")
-        report["golden"] = small
+        # 3. parity with the JAX package's goldens, both Merkle hashers on
+        # the same traces
+        small = prepare(10, workdir)
+        report["golden"] = {}
+        for hasher, golden_file in (("blake3", "fib_loop_golden.json"),
+                                    ("poseidon", "fib_loop_golden_poseidon.json")):
+            log(f"[3] golden parity at N=10, {hasher} Merkle caps "
+                f"(at {time.perf_counter() - started:.1f} s)")
+            _, rep = prove_and_verify(small, device, hasher)
+            check_golden(rep, golden_file)
+            log(f"    proof {rep['proof_bytes']} bytes, sha256 matches "
+                f"{golden_file}; verified ({rep['seconds']})")
+            report["golden"][hasher] = rep
+        del small
         torch.cuda.empty_cache()
 
-        # 4. the main path at full size, counting launches
-        log(f"[4] main path at N={FULL_N}")
-        kernels.reset_launches()
-        _, full = main_path(FULL_N, device, workdir)
-        launches = dict(kernels.LAUNCHES)
-        full["launches"] = launches
-        report["full"] = full
-        log(f"    shapes {full['table_shapes']}")
-        log(f"    seconds {full['seconds']}, peak "
-            f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, launches {launches}")
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the main path: "
-                                 f"{missing}")
+        # 4. the main path at full size, both Merkle hashers on the same
+        # traces, counting each path's launches
+        log(f"[4] main path at N={FULL_N} "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        full_prep = prepare(FULL_N, workdir)
+        report["full"] = {}
+        for hasher, kernel_names in PATH_KERNELS.items():
+            kernels.reset_launches()
+            _, full = prove_and_verify(full_prep, device, hasher)
+            launches = dict(kernels.LAUNCHES)
+            full["launches"] = launches
+            full["merkle_hashing"] = merkle_hash_counts(
+                full_prep[2], full["table_shapes"],
+                StarkConfig.standard_fast_config())
+            if launches[f"{hasher}_leaves"] != full["merkle_hashing"][
+                    "leaf_launches"]:
+                raise AssertionError(
+                    f"{hasher} leaf launches {launches[f'{hasher}_leaves']}, "
+                    f"the commits' shapes need "
+                    f"{full['merkle_hashing']['leaf_launches']}")
+            report["full"][hasher] = full
+            log(f"    {hasher}: shapes {full['table_shapes']}")
+            log(f"    {hasher}: seconds {full['seconds']}, peak "
+                f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, proof "
+                f"{full['proof_bytes']} bytes sha256 {full['proof_sha256']}, "
+                f"launches {launches}")
+            missing = [k for k in kernel_names if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the {hasher} "
+                                     f"path: {missing}")
+            stray = [k for k, v in launches.items()
+                     if v and k not in kernel_names]
+            if stray:
+                raise AssertionError(f"kernels of another path launched on "
+                                     f"the {hasher} path: {stray}")
+            torch.cuda.empty_cache()
+        for hasher, digest in FULL_SHA256.items():
+            if report["full"][hasher]["proof_sha256"] != digest:
+                raise AssertionError(f"the {hasher} path's N={FULL_N} proof "
+                                     f"changed")
+        del full_prep
+
+        # 5. the CLI on the card, in this process
+        log(f"[5] ola-torch asm, run, prove, verify at N=10 "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        report["cli"] = cli_path(workdir)
+        log(f"    proof matches cli_fib_golden.json ({report['cli']})")
 
     jax_after = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
     if jax_after - jax_before:
@@ -574,22 +804,28 @@ def run() -> int:
     if reference:
         raise AssertionError(f"the port imported {reference}")
 
+    # launches: the sum over the two full-size paths' runs
     kernel_line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": sum(launches[c] for c in counters),
+         "launches": sum(path["launches"][c] for c in counters
+                         for path in report["full"].values()),
          **{key: report["kernels"][name][key]
             for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")}}
         for name, route, source, replaces, counters in KERNELS]}
     report["card"] = smi
+    report["seconds_total"] = time.perf_counter() - started
+    log(f"chip_smoke: {report['seconds_total']:.1f} s in all")
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     print(json.dumps({"full_size": {
-        "N": FULL_N, "seconds": full["seconds"],
-        "peak_memory_bytes": full["peak_memory_bytes"],
-        "launches": launches, "proof_sha256": full["proof_sha256"]}}))
+        hasher: {"N": FULL_N, "seconds": full["seconds"],
+                 "peak_memory_bytes": full["peak_memory_bytes"],
+                 "launches": full["launches"],
+                 "proof_sha256": full["proof_sha256"]}
+        for hasher, full in report["full"].items()}}))
     print(json.dumps(kernel_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,23 @@
 // where every thread of a warp reads the same word at the same time (a
 // broadcast). State row i of lane t is in[i * n + t], so a warp's loads and
 // stores of one row are coalesced.
+//
+// The same library holds the Poseidon Merkle kernels, so that they share
+// K2's __constant__ tables and gl_poseidon_init:
+// - poseidon_leaves replaces the leaf sponge of olavm_tpu/merkle/device.py:42
+//   leaf_digests (a jnp chain of permute_gf there): one thread per leaf runs
+//   the rate-8 overwrite sponge over its C elements, ceil(C / 8)
+//   permutations with the 12 words in registers throughout;
+// - poseidon_level replaces olavm_tpu/merkle/device.py:186 compress_digests:
+//   one thread per parent permutes [left, right, 0, 0, 0, 0].
+// Both are bound by operations, as K2 is: a leaf reads 8 bytes per absorbed
+// element and a parent 64 bytes, against ~28,000 operations per
+// permutation. The digests are (8, n) arrays of u32 words (lo, hi of each
+// of the 4 elements), the layout of the blake3 digests, so the tree code
+// is shared by the two hashers.
 #include <cuda_runtime.h>
 
-#include "poseidon_perm.cuh"
+#include "poseidon_merkle.cuh"
 
 namespace {
 
@@ -41,6 +55,55 @@ permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
     poseidon::permute(s);
 #pragma unroll
     for (int i = 0; i < WIDTH; ++i) out[i * n + lane] = s[i];
+  }
+}
+
+// words 0-3 of s as digest j of an (8, n) u32-word array: element w's low
+// half at row 2w, its high half at row 2w + 1
+__device__ __forceinline__ void store_digest(uint64_t* out, int64_t n,
+                                             int64_t j, const uint64_t* s) {
+#pragma unroll
+  for (int w = 0; w < poseidon::DIGEST; ++w) {
+    out[(2 * w) * n + j] = s[w] & 0xFFFFFFFFull;
+    out[(2 * w + 1) * n + j] = s[w] >> 32;
+  }
+}
+
+// cols: (C, n) canonical elements, leaf t is column t; out: (8, n) words
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+leaves_kernel(const uint64_t* __restrict__ cols, uint64_t* __restrict__ out,
+              int64_t n, int C) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < n; t += stride) {
+    uint64_t s[poseidon::WIDTH];
+    poseidon::sponge(cols + t, n, C, s);
+    store_digest(out, n, t, s);
+  }
+}
+
+// digests: (8, n) words, n even; out: (8, n / 2). Parent i compresses
+// children 2i and 2i + 1, read as one 16-byte load per word row.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+level_kernel(const uint64_t* __restrict__ digests, uint64_t* __restrict__ out,
+             int64_t n) {
+  using poseidon::DIGEST;
+  const int64_t parents = n >> 1;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < parents; i += stride) {
+    uint64_t left[DIGEST], right[DIGEST], s[poseidon::WIDTH];
+#pragma unroll
+    for (int w = 0; w < DIGEST; ++w) {
+      const ulonglong2 lo =
+          *reinterpret_cast<const ulonglong2*>(digests + (2 * w) * n + 2 * i);
+      const ulonglong2 hi =
+          *reinterpret_cast<const ulonglong2*>(digests + (2 * w + 1) * n + 2 * i);
+      left[w] = lo.x | (hi.x << 32);
+      right[w] = lo.y | (hi.y << 32);
+    }
+    poseidon::two_to_one(left, right, s);
+    store_digest(out, parents, i, s);
   }
 }
 
@@ -74,5 +137,27 @@ extern "C" int gl_poseidon_permute(const void* in, void* out, int64_t n,
   permute_kernel<<<gl::grid_for(n, THREADS), THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols: (C, n) canonical elements; out: (8, n) digest words. Any C >= 1: the
+// rule that a leaf of at most 4 elements is its own digest is the caller's.
+extern "C" int gl_poseidon_leaves(const void* cols, void* out, int64_t n, int C,
+                                  void* stream) {
+  if (n < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  leaves_kernel<<<gl::grid_for(n, THREADS), THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(cols), static_cast<uint64_t*>(out), n, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// digests: (8, n) words, n even, 16-byte aligned; out: (8, n / 2)
+extern "C" int gl_poseidon_level(const void* digests, void* out, int64_t n,
+                                 void* stream) {
+  if (n < 2 || (n & 1) || (reinterpret_cast<uintptr_t>(digests) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  level_kernel<<<gl::grid_for(n >> 1, THREADS), THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(digests), static_cast<uint64_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

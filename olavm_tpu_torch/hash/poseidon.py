@@ -1,14 +1,20 @@
 """Poseidon permutation over Goldilocks (width 12, 8 full + 22 partial rounds);
 counterpart of olavm_tpu/hash/poseidon.py.
 
-Two parts:
+Three parts:
 - the numpy host half, carried from olavm_tpu/hash/poseidon.py:75-240
   unchanged (trace generation, challenger, SMT hashing);
 - a torch permutation over (12, n) states: on a CUDA tensor it launches K2
   (csrc/poseidon.cu, whose MDS constants are compiled in and checked against
   the tables here at its first use); on a CPU tensor it runs the plain version,
   `permute_plain`, which follows permute_stacked_gf_unrolled
-  (olavm_tpu/hash/poseidon.py:417-468) with the plain field ops.
+  (olavm_tpu/hash/poseidon.py:417-468) with the plain field ops;
+- the Poseidon Merkle hashing of merkle/device.py: `leaves` (the rate-8
+  overwrite sponge over each leaf of a (C, n) column array) and `level` (one
+  tree level of (8, n) digest words). On a CUDA tensor each launches its
+  kernel in csrc/poseidon.cu (the sponge and the compression are in
+  csrc/poseidon_merkle.cuh); on a CPU tensor each runs its plain version,
+  `leaves_plain` or `level_plain`, loops over `permute_plain`.
 
 The round and MDS constants are read from poseidon_constants.json beside this
 module, a copy of olavm_tpu/hash/poseidon_constants.json (required bit for
@@ -310,11 +316,13 @@ def _sbox_plain(x):
 
 
 def _sum_rows_plain(x):
-    """Modular sum over the leading axis."""
-    acc = x[0]
-    for i in range(1, x.shape[0]):
-        acc = gf.add_plain(acc, x[i])
-    return acc
+    """Modular sum over the leading axis, as a tree of pairwise adds (few
+    torch calls: the plain version's time is their count)."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        pairs = gf.add_plain(x[:half], x[half:2 * half])
+        x = torch.cat([pairs, x[2 * half:]]) if x.shape[0] % 2 else pairs
+    return x[0]
 
 
 def permute_plain(state: torch.Tensor) -> torch.Tensor:
@@ -328,16 +336,15 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
 
     def full_round(st, r):
         st = _sbox_plain(gf.add_plain(st, rc[r]))
-        return torch.stack([_sum_rows_plain(gf.mul_plain(coef_t[r], st))
-                            for r in range(WIDTH)])
+        # out[row] = sum_j coef[row, j] * st[j], all rows at once
+        return _sum_rows_plain(gf.mul_plain(coef_t.transpose(0, 1), st[:, None]))
 
     for r in range(HALF_N_FULL_ROUNDS):
         state = full_round(state, r)
     state = gf.add_plain(state, _col(FAST_PARTIAL_FIRST_ROUND_CONSTANT, dev))
     init = _col(FAST_PARTIAL_ROUND_INITIAL_MATRIX, dev).reshape(
         WIDTH - 1, WIDTH - 1, 1)
-    rest = torch.stack([_sum_rows_plain(gf.mul_plain(state[1:], init[:, c]))
-                        for c in range(WIDTH - 1)])
+    rest = _sum_rows_plain(gf.mul_plain(state[1:, None], init))
     s0 = state[0]
     prc = _col(FAST_PARTIAL_ROUND_CONSTANTS, dev)
     vs = _col(FAST_PARTIAL_ROUND_VS, dev).reshape(N_PARTIAL_ROUNDS, WIDTH - 1, 1)
@@ -367,3 +374,82 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     if state.device.type == "cuda":
         return _permute_cuda(state)
     return permute_plain(state)
+
+
+# ---------------------------------------------------------------------------
+# Merkle hashing on torch tensors. A digest batch is (8, n) int64 holding u32
+# words: element w of digest j is words 2w (low half) and 2w + 1 (high half)
+# of column j, the layout of the blake3 digests (merkle/device.py).
+# ---------------------------------------------------------------------------
+
+DIGEST = 4  # elements per digest
+
+
+def _digest_words(d: torch.Tensor) -> torch.Tensor:
+    """(4, n) elements -> (8, n) u32 words (lo, hi per element)."""
+    return torch.stack([d & gf.M32, (d >> 32) & gf.M32], dim=1).reshape(
+        2 * d.shape[0], d.shape[1])
+
+
+def leaves_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Plain version of the leaf kernel: hash_no_pad of each column of (C, n)
+    canonical elements -> (8, n) digest words. A last chunk of k < 8
+    elements overwrites only words 0..k-1 of the state."""
+    C, n = cols.shape
+    state = torch.zeros((WIDTH, n), dtype=torch.int64, device=cols.device)
+    for start in range(0, C, RATE):
+        chunk = min(RATE, C - start)
+        state = permute_plain(torch.cat([cols[start:start + chunk],
+                                         state[chunk:]]))
+    return _digest_words(state[:DIGEST])
+
+
+def leaves(cols: torch.Tensor) -> torch.Tensor:
+    """Poseidon digests of the n leaves of (C, n) columns, C >= 1 (whether a
+    short leaf is its own digest is the caller's rule) -> (8, n) words: the
+    leaf kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    C, n = cols.shape
+    if C < 1:
+        raise ValueError("a Poseidon leaf needs at least one element")
+    if cols.device.type != "cuda":
+        return leaves_plain(cols)
+    kernels.require_cuda_int64(cols)
+    out = torch.empty((8, n), dtype=torch.int64, device=cols.device)
+    if n == 0:
+        return out
+    lib = _poseidon_lib(cols.device)
+    kernels.check(lib.gl_poseidon_leaves(cols.data_ptr(), out.data_ptr(), n, C,
+                                         kernels.stream_ptr(cols)),
+                  "poseidon_leaves")
+    kernels.LAUNCHES["poseidon_leaves"] += 1
+    return out
+
+
+def level_plain(digests: torch.Tensor) -> torch.Tensor:
+    """Plain version of the level kernel: two_to_one of the digest pairs
+    (2i, 2i + 1) of an (8, n) level -> (8, n / 2)."""
+    d = digests[0::2] | (digests[1::2] << 32)
+    left, right = d[:, 0::2], d[:, 1::2]
+    state = torch.cat([left, right, torch.zeros_like(left)])
+    return _digest_words(permute_plain(state)[:DIGEST])
+
+
+def level(digests: torch.Tensor) -> torch.Tensor:
+    """One Poseidon tree level: (8, n) digest words, n even -> (8, n / 2):
+    the level kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if digests.device.type != "cuda":
+        return level_plain(digests)
+    kernels.require_cuda_int64(digests)
+    n = digests.shape[1]
+    if digests.shape[0] != 8 or n < 2 or n % 2:
+        raise ValueError(f"digest level must be (8, even n), got "
+                         f"{tuple(digests.shape)}")
+    if digests.data_ptr() % 16:
+        raise ValueError("digest level must be 16-byte aligned")
+    out = torch.empty((8, n // 2), dtype=torch.int64, device=digests.device)
+    lib = _poseidon_lib(digests.device)
+    kernels.check(lib.gl_poseidon_level(digests.data_ptr(), out.data_ptr(), n,
+                                        kernels.stream_ptr(digests)),
+                  "poseidon_level")
+    kernels.LAUNCHES["poseidon_level"] += 1
+    return out

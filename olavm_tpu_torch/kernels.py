@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
-            "blake3_leaves": 0, "blake3_level": 0}
+            "blake3_leaves": 0, "blake3_level": 0, "poseidon_leaves": 0,
+            "poseidon_level": 0}
 
 # source name -> what nvcc printed when it was last built here (ptxas -v:
 # registers, shared memory and spills of every kernel)
@@ -60,6 +61,8 @@ _SIGNATURES = {
     "poseidon": {
         "gl_poseidon_init": [_VP] * 8,
         "gl_poseidon_permute": [_VP, _VP, _I64, _VP],
+        "gl_poseidon_leaves": [_VP, _VP, _I64, _INT, _VP],
+        "gl_poseidon_level": [_VP, _VP, _I64, _VP],
     },
 }
 

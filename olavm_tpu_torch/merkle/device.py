@@ -1,18 +1,25 @@
-"""Merkle commitment on torch tensors (blake3 hasher); counterpart of
-olavm_tpu/merkle/device.py:106-238.
+"""Merkle commitment on torch tensors, blake3 or Poseidon hasher;
+counterpart of olavm_tpu/merkle/device.py:42-238.
 
 A batch of n leaves of C field elements is a (C, n) int64 tensor (column i of
-the LDE matrix is leaf i); digests are (8, n) tensors of u32 words. The leaf
-message of C u64 values is hashed as 8*C little-endian bytes: absorbed 8
-columns (one 64-byte block) at a time into running per-leaf chaining
-values, with a fresh chunk every 128 columns and one parent compression for
-two-chunk leaves (the chunk tree of olavm_tpu/stark/oracle_device.py:198-240).
-Leaves of <= 4 elements are their own zero-padded digests (hash_or_noop).
+the LDE matrix is leaf i); digests are (8, n) tensors of u32 words, for both
+hashers (a Poseidon digest's 4 elements as lo, hi pairs). Leaves of <= 4
+elements are their own zero-padded digests (hash_or_noop), for both hashers.
 
-On CUDA tensors `leaf_digests` and `compress_level` launch the K4 kernels
-(csrc/blake3.cu): one thread per leaf, or per parent. On CPU tensors their
-plain versions run, `leaf_digests_plain` and `compress_level_plain`, chains
-of int64 torch ops over hash/blake3.py's `compress`.
+`leaf_digests` and `compress_level` take the hasher's name:
+- "blake3": the leaf message of C u64 values is hashed as 8*C little-endian
+  bytes, absorbed 8 columns (one 64-byte block) at a time into running
+  per-leaf chaining values, with a fresh chunk every 128 columns and one
+  parent compression for two-chunk leaves (the chunk tree of
+  olavm_tpu/stark/oracle_device.py:198-240); at most 256 columns. On CUDA
+  tensors the K4 kernels run (csrc/blake3.cu); on CPU tensors their plain
+  versions, `leaf_digests_plain` and `compress_level_plain`, chains of int64
+  torch ops over hash/blake3.py's `compress`;
+- "poseidon": the rate-8 overwrite sponge of any width and two_to_one
+  (hash/poseidon.py `leaves` and `level`: the Poseidon kernels of
+  csrc/poseidon.cu on CUDA tensors, their plain versions on CPU tensors);
+- any other name (keccak) raises NotImplementedError: the host prover
+  (stark/prover.py) runs those configurations.
 """
 
 from __future__ import annotations
@@ -22,11 +29,22 @@ import torch
 
 from .. import kernels
 from ..hash import blake3 as b3
+from ..hash import poseidon as pos
 
 M32 = 0xFFFFFFFF
 NOOP_MAX = 4
 # one blake3 chunk is 1024 bytes = 128 u64 columns
 CHUNK_COLS = 128
+HASHERS = ("blake3", "poseidon")
+
+
+def check_hasher(hasher_kind: str) -> None:
+    """Raise for a Merkle hasher that has no device path."""
+    if hasher_kind not in HASHERS:
+        raise NotImplementedError(
+            f"merkle hasher {hasher_kind!r} has no device path (only "
+            f"{', '.join(HASHERS)}); the host prover, "
+            f"olavm_tpu_torch.stark.prover.prove_with_traces, runs it")
 
 
 def absorb_block_meta(total_cols: int):
@@ -63,11 +81,15 @@ def _words(cols: torch.Tensor) -> torch.Tensor:
     return words
 
 
-def leaf_digests(cols: torch.Tensor) -> torch.Tensor:
+def leaf_digests(cols: torch.Tensor, hasher_kind: str = "blake3"
+                 ) -> torch.Tensor:
     """Hash n leaves given as (C, n) u64 columns -> (8, n) digest words."""
+    check_hasher(hasher_kind)
     C, n = cols.shape
     if C <= NOOP_MAX:
         return _words(torch.cat([cols, cols.new_zeros(4 - C, n)]))[:8]
+    if hasher_kind == "poseidon":
+        return pos.leaves(cols)
     if C > 2 * CHUNK_COLS:
         raise ValueError(f"leaves over {2 * CHUNK_COLS} columns not supported")
     if cols.device.type != "cuda":
@@ -103,8 +125,12 @@ def leaf_digests_plain(cols: torch.Tensor) -> torch.Tensor:
                        torch.cat([chunk_cvs[0], cv]), 64, b3.PARENT | b3.ROOT)
 
 
-def compress_level(digests: torch.Tensor) -> torch.Tensor:
+def compress_level(digests: torch.Tensor, hasher_kind: str = "blake3"
+                   ) -> torch.Tensor:
     """One tree level: pairs (2i, 2i+1) of (8, n) digests -> (8, n/2)."""
+    check_hasher(hasher_kind)
+    if hasher_kind == "poseidon":
+        return pos.level(digests)
     if digests.device.type != "cuda":
         return compress_level_plain(digests)
     kernels.require_cuda_int64(digests)

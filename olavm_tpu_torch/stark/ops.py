@@ -1,7 +1,9 @@
-"""Field-op adapters so each table's constraint code runs in two modes;
-counterpart of olavm_tpu/stark/ops.py (whose host BaseOps serves only the
-host prover, which the port does not carry).
+"""Field-op adapters so each table's constraint code runs in three modes;
+counterpart of olavm_tpu/stark/ops.py (whose GfOps, the jnp device ops, is
+not carried).
 
+- BaseOps: host quotient evaluation for the host prover (stark/prover.py)
+  over numpy uint64 arrays (carried unchanged);
 - TorchOps: device quotient evaluation over int64 tensors (field/gf.py), so
   the same eval_packed code runs on the card: every product on a CUDA
   tensor launches K3;
@@ -18,6 +20,47 @@ from ..field import extension as ge
 from ..field import goldilocks as g
 
 from ..field import gf
+
+
+class BaseOps:
+    is_ext = False
+
+    @staticmethod
+    def add(a, b):
+        return g.add_arr(a, b)
+
+    @staticmethod
+    def sub(a, b):
+        return g.sub_arr(a, b)
+
+    @staticmethod
+    def mul(a, b):
+        return g.mul_arr(a, b)
+
+    @staticmethod
+    def neg(a):
+        return g.neg_arr(a)
+
+    @staticmethod
+    def constant(c: int):
+        return np.uint64(c % g.P)
+
+    @staticmethod
+    def scalar_mul(a, c: int):
+        return g.mul_arr(a, np.uint64(c % g.P))
+
+    @staticmethod
+    def add_many(terms):
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = g.add_arr(acc, t)
+        return acc
+
+    @staticmethod
+    def indicator_eq_const(a, c: int):
+        """Elementwise 1 where a == c else 0 (the reference's data-dependent
+        packed-value selector, memory_stark.rs:290-298)."""
+        return (np.asarray(a) == np.uint64(c % g.P)).astype(np.uint64)
 
 
 class TorchOps:

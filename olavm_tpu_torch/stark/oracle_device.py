@@ -10,7 +10,8 @@ direct evaluation).
 
 Merkle leaves are the LDE columns in bit-reversed order (leaf digests are
 computed in natural order, then permuted), matching the host tree and the
-reference. Only the blake3 hasher is ported.
+reference. The blake3 and Poseidon hashers run here (merkle/device.py);
+keccak runs only in the host prover (stark/prover.py).
 """
 
 from __future__ import annotations
@@ -29,14 +30,15 @@ from ..ntt import ntt as dntt
 _BLOCK_COLS = 16
 
 
-def build_tree_device(leaf_digs: torch.Tensor, cap_height: int):
+def build_tree_device(leaf_digs: torch.Tensor, cap_height: int,
+                      hasher_kind: str = "blake3"):
     """Merkle levels over (8, N) leaf digests (already in leaf order).
     Returns (levels: [(8, N), (8, N/2), ...] below the cap, cap: host
     (2^cap_height, 4) u64)."""
     levels = [leaf_digs]
     cur = leaf_digs
     while cur.shape[1] > (1 << cap_height):
-        cur = dmerkle.compress_level(cur)
+        cur = dmerkle.compress_level(cur, hasher_kind)
         levels.append(cur)
     cap = dmerkle.digests_to_u64(levels.pop())
     return levels, cap
@@ -81,18 +83,16 @@ class DevicePolynomialBatch:
     @staticmethod
     def from_coeffs(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
                     hasher_kind: str = "blake3") -> "DevicePolynomialBatch":
-        if hasher_kind != "blake3":
-            raise NotImplementedError(
-                f"merkle hasher {hasher_kind!r}: only blake3 is ported")
+        dmerkle.check_hasher(hasher_kind)
         C, n = coeffs.shape
         size = n << rate_bits
         lde = torch.empty((C, size), dtype=torch.int64, device=coeffs.device)
         for s in range(0, C, _BLOCK_COLS):
             lde[s:s + _BLOCK_COLS] = dntt.coset_lde(
                 coeffs[s:s + _BLOCK_COLS], rate_bits)
-        digs = dmerkle.leaf_digests(lde)
+        digs = dmerkle.leaf_digests(lde, hasher_kind)
         digs = digs[:, dntt.bitrev_perm(size, coeffs.device)]
-        levels, cap = build_tree_device(digs, cap_height)
+        levels, cap = build_tree_device(digs, cap_height, hasher_kind)
         return DevicePolynomialBatch(coeffs, lde, levels, cap, rate_bits)
 
     @property

@@ -5,8 +5,8 @@ Same transcript as the host prover (circuits/src/stark/prover.rs): the
 Fiat-Shamir challenger and proof objects stay on the host, every O(n) step
 runs on the given torch device.
 
-  commit    = iNTT -> coset LDE -> blake3 leaves -> Merkle levels
-              (oracle_device; LDEs stay resident)
+  commit    = iNTT -> coset LDE -> blake3 or Poseidon leaves -> Merkle
+              levels (oracle_device; LDEs stay resident)
   Z polys   = log-depth grand products (ctl_device)
   quotient  = each table's own eval_packed, run through TorchOps over each
               residue class of the quotient coset in one pass
@@ -14,7 +14,9 @@ runs on the given torch device.
   FRI       = values-first composition poly, fold, re-FFT, extension-leaf
               trees, the Poseidon PoW grind (K2), query gathers
 
-On a CUDA device the products launch K3, the transforms K1 and the grind K2.
+On a CUDA device the products launch K3, the transforms K1 and the grind K2;
+the Merkle hashing launches the blake3 kernels (K4) or the Poseidon leaf and
+level kernels, as config.merkle_hasher says.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..utils.timing import TimingTree
 from ..field import gf
 from ..field import gfe
 from ..hash import poseidon as pos
+from ..hash.hashers import by_name
 from ..merkle import device as dmerkle
 from ..ntt import ntt as dntt
 from .challenger import Challenger
@@ -217,7 +220,8 @@ class _DeviceExtTree:
     """FRI commit-phase tree over extension values (single device): the
     values in bit-reversed order, `arity` consecutive values per leaf."""
 
-    def __init__(self, values: gfe.GFE, arity: int, cap_height: int):
+    def __init__(self, values: gfe.GFE, arity: int, cap_height: int,
+                 hasher_kind: str = "blake3"):
         n = values.shape[0]
         perm = dntt.bitrev_perm(n, values.re.device)
         self.values = gfe.GFE(values.re[perm], values.im[perm])
@@ -228,8 +232,8 @@ class _DeviceExtTree:
         cols = torch.stack([self.values.re.reshape(self.n_leaves, arity),
                             self.values.im.reshape(self.n_leaves, arity)],
                            dim=-1).reshape(self.n_leaves, 2 * arity)
-        digs = dmerkle.leaf_digests(cols.T.contiguous())
-        self.levels, self.cap = build_tree_device(digs, cap_height)
+        digs = dmerkle.leaf_digests(cols.T.contiguous(), hasher_kind)
+        self.levels, self.cap = build_tree_device(digs, cap_height, hasher_kind)
 
     def leaf_values(self, coset_indices: np.ndarray) -> np.ndarray:
         """(k,) leaf indices -> host (k, arity, 2) u64 extension values."""
@@ -290,7 +294,7 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
     c = dntt.coset_ifft(torch.stack([values.re, values.im]))
     coeffs = gfe.GFE(c[0], c[1])
     return fri_proof_device(oracles, coeffs, values, challenger, fri_config,
-                            degree_bits)
+                            degree_bits, config.merkle_hasher)
 
 
 def fri_fold(coeffs: gfe.GFE, beta, arity: int) -> gfe.GFE:
@@ -310,11 +314,11 @@ def fri_fold(coeffs: gfe.GFE, beta, arity: int) -> gfe.GFE:
 
 
 def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
-                     challenger, config, degree_bits: int) -> FriProof:
+                     challenger, config, degree_bits: int,
+                     hasher_kind: str) -> FriProof:
     """FRI commit phase (trees, folds, re-FFTs), final polynomial, PoW and
-    query gathers."""
-    from ..hash.hashers import BLAKE3
-
+    query gathers; the trees are hashed with the named Merkle hasher."""
+    hasher = by_name(hasher_kind)
     device = coeffs.re.device
     arity_schedule = config.reduction_arity_bits(degree_bits)
 
@@ -322,8 +326,8 @@ def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
     shift = g.MULTIPLICATIVE_GROUP_GENERATOR
     for arity_bits in arity_schedule:
         arity = 1 << arity_bits
-        tree = _DeviceExtTree(values, arity, config.cap_height)
-        challenger.observe_cap(tree.cap, BLAKE3)
+        tree = _DeviceExtTree(values, arity, config.cap_height, hasher_kind)
+        challenger.observe_cap(tree.cap, hasher)
         trees.append(tree)
 
         beta = ge.t(challenger.get_extension_challenge())
@@ -463,9 +467,12 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
     transcript, every heavy phase on `device`. trace_poly_values: per table
     (num_cols, degree) uint64 host arrays. The prove runs on the card unless
     the caller asks for another device (the CPU tests pass "cpu"); without a
-    card the default raises, it never carries on on the CPU by itself."""
+    card the default raises, it never carries on on the CPU by itself. A
+    Merkle hasher without a device path (keccak) raises at once: the host
+    prover, stark/prover.py, runs it."""
     timing = timing or TimingTree()
     device = torch.device(device)
+    dmerkle.check_hasher(config.merkle_hasher)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "prove_with_traces_device: no CUDA device is available; pass "

@@ -159,6 +159,50 @@ def test_poseidon_init_refuses_other_mds_tables(dev, table):
     np.testing.assert_array_equal(convert.to_u64(out).T, jpos.permute_np(states))
 
 
+@pytest.mark.parametrize("C", [1, 4, 5, 8, 9, 16, 17, 32, 94, 134])
+def test_poseidon_leaves_kernel_matches_plain(dev, C):
+    rows = _rand((1000, C), C)
+    rows[0], rows[1] = g.P - 1, 0
+    cols = convert.from_u64(rows.T.copy(), dev)
+    before = kernels.LAUNCHES["poseidon_leaves"]
+    got = tpos.leaves(cols)
+    assert kernels.LAUNCHES["poseidon_leaves"] == before + 1
+    assert torch.equal(got, tpos.leaves_plain(cols))
+    assert torch.equal(got.cpu(), tpos.leaves(cols.cpu()))
+    # through the Merkle code: leaves of at most 4 elements are their own
+    # digests, with no launch
+    digs = tmerkle.leaf_digests(cols, "poseidon")
+    assert kernels.LAUNCHES["poseidon_leaves"] == before + 1 + (C > 4)
+    assert torch.equal(digs.cpu(), tmerkle.leaf_digests(cols.cpu(), "poseidon"))
+
+
+@pytest.mark.parametrize("n", [2, 6, 1 << 12])
+def test_poseidon_level_kernel_matches_plain(dev, n):
+    digs = tpos.leaves(convert.from_u64(_rand((4, n), n), dev))
+    before = kernels.LAUNCHES["poseidon_level"]
+    got = tmerkle.compress_level(digs, "poseidon")
+    assert kernels.LAUNCHES["poseidon_level"] == before + 1
+    assert torch.equal(got, tpos.level_plain(digs))
+    assert torch.equal(got.cpu(), tpos.level(digs.cpu()))
+
+
+def test_poseidon_merkle_kernels_refuse_what_they_do_not_take(dev):
+    cols = convert.from_u64(_rand((9, 64), 1), dev)
+    with pytest.raises(TypeError):
+        tpos.leaves(cols.to(torch.int32))
+    with pytest.raises(ValueError):
+        tpos.leaves(cols.T)  # (64, 9) view, not contiguous
+    digs = torch.zeros((8, 64), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        tpos.level(digs.to(torch.int32))
+    with pytest.raises(ValueError):
+        tpos.level(digs[:, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        tpos.level(digs[:, :63].contiguous())  # odd width
+    with pytest.raises(NotImplementedError, match="host prover"):
+        tmerkle.leaf_digests(cols, "keccak")
+
+
 def test_toy_proof_through_kernels_equals_host(dev):
     from olavm_tpu.stark import config as jconfig
     from olavm_tpu.stark.prover import prove_with_traces
@@ -175,4 +219,29 @@ def test_toy_proof_through_kernels_equals_host(dev):
     port = prove_with_traces_device(ToySystem(), tconfig.StarkConfig(), traces,
                                     device=dev)
     assert tser(port) == serialize_all_proof(host)
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    blake3 = {k: v for k, v in kernels.LAUNCHES.items()
+              if not k.startswith("poseidon_")}
+    assert all(v > 0 for v in blake3.values()), kernels.LAUNCHES
+
+
+def test_toy_poseidon_proof_through_kernels_equals_host(dev):
+    from olavm_tpu.stark import config as jconfig
+    from olavm_tpu.stark.prover import prove_with_traces
+    from olavm_tpu.stark.serialization import serialize_all_proof
+    from olavm_tpu_torch.stark import config as tconfig
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
+    from olavm_tpu_torch.stark.serialization import serialize_all_proof as tser
+
+    from test_stark_framework import ToySystem, build_traces
+
+    traces = build_traces(64)
+    host = prove_with_traces(
+        ToySystem(), jconfig.StarkConfig(merkle_hasher="poseidon"), traces)
+    kernels.reset_launches()
+    port = prove_with_traces_device(
+        ToySystem(), tconfig.StarkConfig(merkle_hasher="poseidon"), traces,
+        device=dev)
+    assert tser(port) == serialize_all_proof(host)
+    assert kernels.LAUNCHES["poseidon_leaves"] > 0
+    assert kernels.LAUNCHES["poseidon_level"] > 0
+    assert kernels.LAUNCHES["blake3_leaves"] == kernels.LAUNCHES["blake3_level"] == 0

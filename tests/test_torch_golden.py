@@ -1,28 +1,39 @@
-"""Golden for the port's 12-table parity check on the card.
+"""Goldens for the port's parity checks on the card, made by olavm_tpu on
+the CPU.
 
-tests/fixtures/fib_loop_golden.json holds, for the fib-loop fixture at N=10,
-the public values and the sha256 and byte length of serialize_all_proof of
-olavm_tpu's host prover with StarkConfig.standard_fast_config().
-chip_smoke.py proves the same program with the port on the card and compares
-against it. The slow test recomputes the golden with olavm_tpu; running this
-file as a script (`python tests/test_torch_golden.py`) rewrites it.
+- tests/fixtures/fib_loop_golden.json: the fib-loop fixture at N=10, the
+  public values and the sha256 and byte length of serialize_all_proof of
+  olavm_tpu's host prover with StarkConfig.standard_fast_config() (blake3
+  Merkle caps);
+- tests/fixtures/fib_loop_golden_poseidon.json: the same with
+  merkle_hasher="poseidon";
+- tests/fixtures/cli_fib_golden.json: the proof that olavm_tpu's `ola` CLI
+  writes for the same program through asm, run (calldata 0, 0) and
+  `prove -b host` (chip_smoke.cli_stages).
+
+chip_smoke.py proves the same programs with the port on the card and
+compares against them. The slow tests recompute each golden with
+olavm_tpu; running this file as a script (`python tests/test_torch_golden.py`)
+rewrites all three.
 """
 
 import hashlib
 import json
 import os
+import sys
 import tempfile
 
 import pytest
 
-from chip_smoke import write_fib_program
-
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = os.path.join(FIXTURES, "fib_loop_golden.json")
+GOLDEN_POSEIDON = os.path.join(FIXTURES, "fib_loop_golden_poseidon.json")
+GOLDEN_CLI = os.path.join(FIXTURES, "cli_fib_golden.json")
 GOLDEN_N = 10
 
 
-def golden_record(n: int = GOLDEN_N) -> dict:
+def golden_record(n: int = GOLDEN_N, merkle_hasher: str = "blake3") -> dict:
+    from chip_smoke import write_fib_program
     from olavm_tpu.runtime.harness import run_program_fast
     from olavm_tpu.stark.config import StarkConfig
     from olavm_tpu.stark.proof import PublicValues
@@ -38,28 +49,59 @@ def golden_record(n: int = GOLDEN_N) -> dict:
     traces = generate_traces_fast(fast_run, program, ola, process)
     pre, post = program.trace.start_end_roots
     pv = PublicValues(tuple(pre), tuple(post), 0)
-    proof = prove_with_traces(ola, StarkConfig.standard_fast_config(), traces,
-                              public_values=pv)
+    config = StarkConfig.standard_fast_config()
+    config.merkle_hasher = merkle_hasher
+    proof = prove_with_traces(ola, config, traces, public_values=pv)
     data = serialize_all_proof(proof)
-    return {
-        "N": n,
+    record = {"N": n}
+    if merkle_hasher != "blake3":
+        record["merkle_hasher"] = merkle_hasher
+    record.update({
         "public_values": {"pre_root": [int(x) for x in pre],
                           "post_root": [int(x) for x in post]},
         "proof_sha256": hashlib.sha256(data).hexdigest(),
         "proof_bytes": len(data),
-    }
+    })
+    return record
+
+
+def cli_golden_record(n: int = GOLDEN_N) -> dict:
+    from chip_smoke import cli_stages
+    from olavm_tpu.cli.main import main
+
+    with tempfile.TemporaryDirectory() as d:
+        argvs, out = cli_stages(n, d)
+        for stage in ("asm", "run"):
+            main(argvs[stage])
+        main(argvs["prove"] + ["-b", "host"])
+        with open(out["prove"], "rb") as f:
+            data = f.read()
+    return {"N": n, "calldata": [0, 0], "backend": "host",
+            "proof_sha256": hashlib.sha256(data).hexdigest(),
+            "proof_bytes": len(data)}
+
+
+RECORDS = {
+    GOLDEN: golden_record,
+    GOLDEN_POSEIDON: lambda: golden_record(merkle_hasher="poseidon"),
+    GOLDEN_CLI: cli_golden_record,
+}
 
 
 @pytest.mark.slow
-def test_golden_matches_reference_prover():
-    with open(GOLDEN) as f:
-        assert golden_record() == json.load(f)
+@pytest.mark.parametrize("path", sorted(RECORDS), ids=os.path.basename)
+def test_golden_matches_reference_prover(path):
+    with open(path) as f:
+        assert RECORDS[path]() == json.load(f)
 
 
 if __name__ == "__main__":
+    # the repository root, for chip_smoke
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    with open(GOLDEN, "w") as f:
-        json.dump(golden_record(), f, indent=1)
-        f.write("\n")
+    for path, record in RECORDS.items():
+        with open(path, "w") as f:
+            json.dump(record(), f, indent=1)
+            f.write("\n")

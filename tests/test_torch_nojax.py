@@ -40,6 +40,10 @@ names = [m.name for m in pkgutil.walk_packages(olavm_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 result["modules"] = len(names)
+result["entry_points"] = sorted(set(names) & {
+    "olavm_tpu_torch.cli.main", "olavm_tpu_torch.runtime.trace_io",
+    "olavm_tpu_torch.stark.oracle", "olavm_tpu_torch.stark.prover",
+    "olavm_tpu_torch.utils.trace_analyzer"})
 """
 
 REFERENCE_NATIVE = """
@@ -154,7 +158,9 @@ def _run(*parts: str) -> dict:
 
 def test_port_imports_and_runs_with_jax_refused():
     res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, TOY_PROVE)
-    assert res["modules"] >= 65
+    assert res["modules"] >= 83
+    # the host prover and the CLI's modules, among them
+    assert len(res["entry_points"]) == 5
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
     assert res["verified"]
     assert res["jax_loaded"] == [] and res["reference_loaded"] == []

@@ -5,7 +5,10 @@ twins stand in for their PTX. The permutation is held bit-exact against the
 port's permute_np and olavm_tpu's, at random and edge states; the MDS check
 of gl_poseidon_init must refuse tables that differ from the compiled
 constants; the reductions are held against Python integers at the ends of
-their input ranges. Takes seconds; skips only where g++ is absent."""
+their input ranges. The Poseidon Merkle kernels' device functions
+(csrc/poseidon_merkle.cuh: the leaf sponge and two_to_one) are held
+bit-exact against olavm_tpu's PoseidonHasher at every leaf width class.
+Takes seconds; skips only where g++ is absent."""
 
 import ctypes
 import shutil
@@ -15,6 +18,7 @@ import numpy as np
 import pytest
 
 from olavm_tpu.hash import poseidon as jpos
+from olavm_tpu.hash.hashers import by_name
 from olavm_tpu_torch import kernels
 from olavm_tpu_torch.hash import poseidon as tpos
 
@@ -32,6 +36,7 @@ STUB = """
 HOST_SOURCE = """
 #include <cstring>
 #include "poseidon_perm.cuh"
+#include "poseidon_merkle.cuh"
 
 using namespace poseidon;
 
@@ -55,6 +60,30 @@ extern "C" void k2_permute(const uint64_t* in, uint64_t* out, int64_t n) {
     for (int i = 0; i < WIDTH; ++i) s[i] = in[i * n + lane];
     permute(s);
     for (int i = 0; i < WIDTH; ++i) out[i * n + lane] = s[i];
+  }
+}
+
+// the leaf kernel's loop: (C, n) columns -> (4, n) digest elements
+extern "C" void k2_leaves(const uint64_t* cols, uint64_t* out, int64_t n,
+                          int C) {
+  for (int64_t t = 0; t < n; ++t) {
+    uint64_t s[WIDTH];
+    sponge(cols + t, n, C, s);
+    for (int w = 0; w < DIGEST; ++w) out[w * n + t] = s[w];
+  }
+}
+
+// the level kernel's loop: (4, n) digest elements -> (4, n / 2)
+extern "C" void k2_level(const uint64_t* digests, uint64_t* out, int64_t n) {
+  const int64_t parents = n / 2;
+  for (int64_t i = 0; i < parents; ++i) {
+    uint64_t left[DIGEST], right[DIGEST], s[WIDTH];
+    for (int w = 0; w < DIGEST; ++w) {
+      left[w] = digests[w * n + 2 * i];
+      right[w] = digests[w * n + 2 * i + 1];
+    }
+    two_to_one(left, right, s);
+    for (int w = 0; w < DIGEST; ++w) out[w * parents + i] = s[w];
   }
 }
 
@@ -103,6 +132,10 @@ def k2(tmp_path_factory):
     lib.k2_init.argtypes = [vp] * 8
     lib.k2_permute.argtypes = [vp, vp, ctypes.c_int64]
     lib.k2_permute.restype = None
+    lib.k2_leaves.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_int]
+    lib.k2_leaves.restype = None
+    lib.k2_level.argtypes = [vp, vp, ctypes.c_int64]
+    lib.k2_level.restype = None
     lib.k2_reduce_shifted.argtypes = [u64, u64]
     lib.k2_reduce160.argtypes = [u64, u64, u32]
     lib.k2_reduce128.argtypes = [u64, u64]
@@ -135,6 +168,33 @@ def test_permutation_matches_numpy(k2):
     got = permute_host(k2, states)
     np.testing.assert_array_equal(got, tpos.permute_np(states))
     np.testing.assert_array_equal(got, jpos.permute_np(states))
+
+
+def _leaf_rows(C: int) -> np.ndarray:
+    """(64, C) leaves: random, then all p-1, all 0, and 0 / p-1 alternating."""
+    rows = np.random.default_rng(C).integers(0, P, size=(64, C), dtype=np.uint64)
+    rows[0], rows[1] = P - 1, 0
+    rows[2] = np.where(np.arange(C) % 2, P - 1, 0)
+    return rows
+
+
+@pytest.mark.parametrize("C", [1, 4, 5, 8, 9, 16, 17, 32, 94, 134])
+def test_leaf_sponge_matches_reference_hasher(k2, C):
+    # C = 9, 17, 134: the last chunk overwrites only its own words
+    rows = _leaf_rows(C)
+    cols = np.ascontiguousarray(rows.T)
+    out = np.empty((4, rows.shape[0]), dtype=np.uint64)
+    k2.k2_leaves(cols.ctypes.data, out.ctypes.data, rows.shape[0], C)
+    np.testing.assert_array_equal(out.T, by_name("poseidon").hash_leaves(rows))
+
+
+def test_two_to_one_matches_reference_hasher(k2):
+    digests = _leaf_rows(4)
+    elems = np.ascontiguousarray(digests.T)  # (4, 64)
+    out = np.empty((4, 32), dtype=np.uint64)
+    k2.k2_level(elems.ctypes.data, out.ctypes.data, 64)
+    np.testing.assert_array_equal(
+        out.T, by_name("poseidon").compress(digests[0::2], digests[1::2]))
 
 
 @pytest.mark.parametrize("table", [1, 2])

@@ -4,6 +4,10 @@ prover (which tests/test_device_prover.py holds byte-equal to the JAX device
 prover), olavm_tpu's verifier accepts the port's proof, and the port's
 verifier accepts it and rejects a tampered copy.
 
+The Poseidon Merkle configuration gets the same byte check, and the port's
+carried host prover (stark/prover.py) gives olavm_tpu's bytes for the keccak
+and blake3 configurations.
+
 The CPU grind runs K2's plain version, so the default-suite cases use 8 PoW
 bits; the standard 16-bit configuration runs in the slow tier."""
 
@@ -18,6 +22,7 @@ from olavm_tpu.stark.serialization import (
 )
 from olavm_tpu.stark.verifier import verify_proof
 from olavm_tpu_torch.stark import config as tconfig
+from olavm_tpu_torch.stark import prover as tprover
 from olavm_tpu_torch.stark import serialization as tser
 from olavm_tpu_torch.stark import verifier as tverifier
 from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
@@ -25,11 +30,11 @@ from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
 from test_stark_framework import ToySystem, build_traces
 
 
-def _configs(pow_bits):
+def _configs(pow_bits, merkle_hasher="blake3"):
     return (jconfig.StarkConfig(fri_config=jconfig.FriConfig(
-                proof_of_work_bits=pow_bits)),
+                proof_of_work_bits=pow_bits), merkle_hasher=merkle_hasher),
             tconfig.StarkConfig(fri_config=tconfig.FriConfig(
-                proof_of_work_bits=pow_bits)))
+                proof_of_work_bits=pow_bits), merkle_hasher=merkle_hasher))
 
 
 def _prove_both(pow_bits, degree=64):
@@ -89,3 +94,32 @@ def test_standard_config_bytes_equal_host_prover():
     data = tser.serialize_all_proof(port)
     assert data == serialize_all_proof(host)
     verify_proof(system, deserialize_all_proof(data), host_cfg)
+
+
+def test_poseidon_config_bytes_equal_host_prover():
+    system = ToySystem()
+    host_cfg, port_cfg = _configs(8, "poseidon")
+    traces = build_traces(64)
+    host = prove_with_traces(system, host_cfg, traces)
+    port = prove_with_traces_device(system, port_cfg, traces, device="cpu")
+    data = tser.serialize_all_proof(port)
+    assert data == serialize_all_proof(host)
+    verify_proof(system, deserialize_all_proof(data), host_cfg)
+    tverifier.verify_proof(system, port, port_cfg)
+
+
+@pytest.mark.parametrize("merkle_hasher", ["keccak", "blake3"])
+def test_carried_host_prover_bytes_equal_original(merkle_hasher):
+    system = ToySystem()
+    host_cfg, port_cfg = _configs(8, merkle_hasher)
+    traces = build_traces(64)
+    want = serialize_all_proof(prove_with_traces(system, host_cfg, traces))
+    got = tprover.prove_with_traces(system, port_cfg, traces)
+    assert tser.serialize_all_proof(got) == want
+    tverifier.verify_proof(system, got, port_cfg)
+
+
+def test_keccak_config_has_no_device_path():
+    with pytest.raises(NotImplementedError, match="host prover"):
+        prove_with_traces_device(ToySystem(), _configs(8, "keccak")[1],
+                                 build_traces(64), device="cpu")
