@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Time the NTT (K1) and Poseidon (K2) kernels of this checkout at the main
+"""Time the NTT (K1) and Poseidon kernels of this checkout at the main
 path's shapes, and count the SASS instructions of their kernels.
 
-    python3 chip_kernel_times.py                    # K1 and K2; one CUDA card, nvcc
-    python3 chip_kernel_times.py --kernel poseidon  # K2 only
+    python3 chip_kernel_times.py                    # all; one CUDA card, nvcc
+    python3 chip_kernel_times.py --kernel poseidon  # libposeidon's kernels only
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
-after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per kernel
+after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
 {"root": ..., "kernel": ..., "card": ..., "ptxas": [...], "sass": {...},
-"ms": {shape: milliseconds}}. `sass` holds, for every __global__ function of
-the built library, its instruction count (cuobjdump -sass, NOPs left out) and
-each loop's span and count (a branch back to an earlier address); and, under
+"ms": {shape: milliseconds}}. For libposeidon, "ms" holds K2 at (12, n)
+states ("12x2^18"), the leaf sponge at (C, n) columns ("leaves 94x2^23") and
+one tree level of n digests ("level 2^23"), and "ns_per_permutation" each
+time over its permutations (ceil(C / 8) per leaf, one per parent). The whole
+disassembly of each built library goes to chip_smoke_out/<source>.sass.
+`sass` holds, for every __global__ function of the built library, its
+instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
+count (a branch back to an earlier address); and, under
 `products`, the counts of this checkout's field product less a probe that
 only loads and stores: `u64_product` is the 64-bit `a * b` with
 `__umul64hi`, `mul_wide` the 64x64->128 product of goldilocks.cuh, `mul`
@@ -36,6 +41,11 @@ SHAPES = {
             (16, 1 << 17), (3, 1 << 13), (134, 1024), (53, 16)),
     "poseidon": ((12, 1 << 18), (12, 1 << 20), (12, 1 << 14)),
 }
+# libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
+# the FRI trees' arity-16 extension leaves, one permutation per leaf) and
+# tree levels of n digests
+LEAF_SHAPES = ((94, 1 << 23), (32, 1 << 20), (8, 1 << 23))
+LEVEL_SHAPES = (1 << 23, 1 << 16)
 
 # product probes: one thread per pair, two words out
 PROBES = r"""
@@ -66,11 +76,15 @@ def _tool(name: str) -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
 
 
-def sass_counts(path: str) -> dict:
-    """{function: {"instructions": n, "loops": [[start, end, n], ...]}} of a
-    shared library or cubin, from cuobjdump -sass."""
-    text = subprocess.run([_tool("cuobjdump"), "-sass", path], check=True,
+def disassemble(path: str) -> str:
+    """cuobjdump -sass of a shared library or cubin."""
+    return subprocess.run([_tool("cuobjdump"), "-sass", path], check=True,
                           capture_output=True, text=True).stdout
+
+
+def sass_counts(text: str) -> dict:
+    """{function: {"instructions": n, "loops": [[start, end, n], ...]}} of a
+    disassembly."""
     funcs, name, instrs = {}, None, []
 
     def close():
@@ -114,7 +128,8 @@ def product_counts(csrc: str) -> dict | None:
             capture_output=True)
         if built.returncode != 0:
             return None
-        counts = {k: v["instructions"] for k, v in sass_counts(cubin).items()}
+        counts = {k: v["instructions"]
+                  for k, v in sass_counts(disassemble(cubin)).items()}
     base = counts.pop("probe_base")
     return {k.removeprefix("probe_"): v - base for k, v in counts.items()}
 
@@ -127,7 +142,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(SHAPES),
-                    help="time only this kernel (default: both)")
+                    help="time only this source's kernels (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_kernel_times: no CUDA device", file=sys.stderr)
@@ -139,18 +154,28 @@ def main() -> int:
     kernels.build(names, force=True)
     products = product_counts(str(kernels.CSRC))
     for name in names:
+        sass = disassemble(str(kernels._lib_path(name)))
+        os.makedirs(chip_smoke.REPORT_DIR, exist_ok=True)
+        with open(os.path.join(chip_smoke.REPORT_DIR, f"{name}.sass"), "w") as f:
+            f.write(sass)
         result = {
             "root": ROOT, "kernel": name, "card": chip_smoke.nvidia_smi(),
             "ptxas": [ln.strip() for ln in kernels.BUILD_LOG[name].splitlines()
                       if "registers" in ln or "spill" in ln],
-            "sass": {"kernels": sass_counts(str(kernels._lib_path(name))),
+            "sass": {"kernels": sass_counts(sass),
                      "products": products},
-            "ms": time_kernel(name, chip_smoke.cuda_ms)}
+            **time_kernel(name, chip_smoke.cuda_ms)}
         print(json.dumps(result))
     return 0
 
 
+def _log2(n: int) -> str:
+    return f"2^{n.bit_length() - 1}"
+
+
 def time_kernel(kernel: str, cuda_ms) -> dict:
+    """{"ms": {shape: ms}} and, for libposeidon, {"ns_per_permutation":
+    {shape: ns}}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -163,13 +188,31 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         from olavm_tpu_torch.hash import poseidon as pos
 
         call = pos.permute
-    ms = {}
+    ms, perms = {}, {}
     for shape in SHAPES[kernel]:
         x = torch.randint(0, 1 << 62, shape, generator=gen, device="cuda")
         reps = 10 if shape[0] * shape[1] >= 1 << 24 else 200
-        ms[f"{shape[0]}x2^{shape[1].bit_length() - 1}"] = cuda_ms(lambda: call(x), reps)
+        key = f"{shape[0]}x{_log2(shape[1])}"
+        ms[key] = cuda_ms(lambda: call(x), reps)
+        perms[key] = shape[1]
         del x
-    return ms
+    if kernel == "poseidon":
+        for C, n in LEAF_SHAPES:
+            x = torch.randint(0, 1 << 62, (C, n), generator=gen, device="cuda")
+            key = f"leaves {C}x{_log2(n)}"
+            ms[key] = cuda_ms(lambda: pos.leaves(x), 3 if C * n >= 1 << 28 else 10)
+            perms[key] = -(-C // pos.RATE) * n
+            del x
+        for n in LEVEL_SHAPES:
+            x = torch.randint(0, 1 << 32, (8, n), generator=gen, device="cuda")
+            key = f"level {_log2(n)}"
+            ms[key] = cuda_ms(lambda: pos.level(x), 10 if n >= 1 << 20 else 200)
+            perms[key] = n // 2
+            del x
+    if kernel == "ntt":
+        return {"ms": ms}
+    return {"ms": ms, "ns_per_permutation": {
+        k: v * 1e6 / perms[k] for k, v in ms.items()}}
 
 
 if __name__ == "__main__":

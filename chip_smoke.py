@@ -23,8 +23,10 @@ without printing a result:
    Merkle caps; every kernel's launch count is reset just before each prove
    and read just after it. Each path must have launched its own kernels
    (K1, K2, K3, add, sub and its hasher's leaf and level kernels) and no
-   kernel of the other hasher, and each proof must hash as it did before
-   (`FULL_SHA256`);
+   kernel of the other hasher, and each proof must equal the golden that
+   olavm_tpu's host prover made at N=94000 (its sha256 and length,
+   tests/fixtures/fib_loop_golden_full.json and
+   fib_loop_golden_full_poseidon.json);
 5. the CLI on the card: ola-torch asm, run (calldata 0, 0), prove (its
    default backend, the card) and verify at N=10, in this process through
    olavm_tpu_torch.cli.main.main; the proof must equal
@@ -33,7 +35,8 @@ without printing a result:
 
 At the end neither jax nor any module of olavm_tpu may have been loaded. The
 last lines are the full-size runs' seconds, peak memory and launch counts,
-the `kernels` JSON line (launches summed over the two full-size runs), the
+the nanoseconds per permutation of K2 and of the Poseidon leaf and level
+kernels at their largest shapes, the `kernels` JSON line (launches summed over the two full-size runs), the
 card's nvidia-smi line and the result line {"ok": true, "device": {...}}. A
 longer report goes to chip_smoke_out/report.json.
 """
@@ -95,21 +98,27 @@ OPS_REDUCE_WIDE = 4 + OPS_REDUCE  # 14
 OPS_BLAKE3 = 7 * 8 * 12 + 8  # 680
 ALU_BLAKE3 = 7 * 8 * 10 + 8  # 568
 # One Poseidon permutation, counted by what the function needs.
-# The MDS entries are constants of at most 41 (6 bits), so a term c x s_j is
-# c x low word and c x high word, each a 32x32->64 multiply-add (a low and a
-# high result: 4 multiplies) into two 64-bit sums below 2^42, and an output
-# is one reduction of lo + hi * 2^32 (below 2^74: split hi, fold
-# 2^64 = 2^32 - 1, two 2-word adds with carry, one correction; ~11). Row 0
+# The MDS entries are constants of at most 41 (6 bits), and a row's entries
+# sum to at most 264, so a word cut into limbs of 22, 22 and 20 bits (an and;
+# a shift and an and; a shift: 4) gives row sums of entry x limb below 2^31:
+# a term c x s_j is three 32-bit multiply-adds of one result (3 multiplies,
+# not the 4 results of two 32x32->64 products). An output
+# puts its three sums together and folds the bits above 2^64 (two shifts
+# and 2-word adds, a carry, the top bits, one fold times EPSILON; ~14). Row 0
 # has the diagonal's 8 as a 13th term.
-MUL_MDS_TERM = 4
-OPS_MDS_OUTPUT = 12 * MUL_MDS_TERM + 11  # 59, against 13 * 20 + 12 * 6 = 332 in general
-OPS_MDS_LAYER = 12 * OPS_MDS_OUTPUT + MUL_MDS_TERM  # 712
-MUL_MDS_LAYER = (12 * 12 + 1) * MUL_MDS_TERM  # 580
+MUL_MDS_TERM = 3
+OPS_MDS_SPLIT = 4
+OPS_MDS_OUTPUT = 12 * MUL_MDS_TERM + 14  # 50, against 13 * 20 + 12 * 6 = 332 in general
+OPS_MDS_LAYER = 12 * OPS_MDS_SPLIT + 12 * OPS_MDS_OUTPUT + MUL_MDS_TERM  # 651
+MUL_MDS_LAYER = (12 * 12 + 1) * MUL_MDS_TERM  # 435
 # a full round: 12 constant adds, 12 x^7 of 4 general products (a chain, so
-# each product reduced), the MDS layer: 72 + 960 + 712 = 1744, of which
-# 48 x 8 + 580 = 964 multiplies
-OPS_FULL_ROUND = 12 * OPS_ADD + 12 * 4 * OPS_MUL + OPS_MDS_LAYER  # 1744
-MUL_FULL_ROUND = 12 * 4 * MUL_PRODUCT + MUL_MDS_LAYER  # 964
+# each product reduced), the MDS layer: 72 + 960 + 651 = 1683, of which
+# 48 x 8 + 435 = 819 multiplies
+OPS_FULL_ROUND = 12 * OPS_ADD + 12 * 4 * OPS_MUL + OPS_MDS_LAYER  # 1683
+MUL_FULL_ROUND = 12 * 4 * MUL_PRODUCT + MUL_MDS_LAYER  # 819
+# a 64-bit word times a small constant added into a wider sum: two 32x32->64
+# products (4 multiplies)
+MUL_SMALL_TERM = 4
 
 
 def ops_dot(k: int) -> int:
@@ -130,14 +139,16 @@ MUL_PARTIAL_ENTRY = 11 * 11 * MUL_PRODUCT  # 968
 # s_i + s0 * VS_i, a product, s_i added into its 128 bits, one reduction
 # (11 x 25): 80 + 6 + 183 + 275 = 544 (671 when every product was reduced),
 # of which 4 x 8 + 4 + 11 x 8 + 11 x 8 = 212 multiplies
-OPS_PARTIAL_ROUND = (4 * OPS_MUL + OPS_ADD + MUL_MDS_TERM + ops_dot(11)
+OPS_PARTIAL_ROUND = (4 * OPS_MUL + OPS_ADD + MUL_SMALL_TERM + ops_dot(11)
                      + 11 * (OPS_PRODUCT + OPS_ACCUMULATE + OPS_REDUCE))  # 544
-MUL_PARTIAL_ROUND = 4 * MUL_PRODUCT + MUL_MDS_TERM + 2 * 11 * MUL_PRODUCT  # 212
+MUL_PARTIAL_ROUND = 4 * MUL_PRODUCT + MUL_SMALL_TERM + 2 * 11 * MUL_PRODUCT  # 212
 # 8 full rounds, 22 partial rounds (the last adds no constant):
-# 8 x 1744 + 2041 + 22 x 544 - 6 = 27,955 operations, of which
-# 8 x 964 + 968 + 22 x 212 = 13,344 multiplies. Per SM and clock that is
-# 13,344 / 64 = 208.5 clocks on the multiply pipe and 27,955 / 128 = 218.4
-# clocks of issue: the issue rate bounds it, 0.2188 ms at (12, 2^18).
+# 8 x 1683 + 2041 + 22 x 544 - 6 = 27,467 operations, of which
+# 8 x 819 + 968 + 22 x 212 = 12,184 multiplies. Per SM and clock that is
+# 12,184 / 64 = 190.4 clocks on the multiply pipe and 27,467 / 128 = 214.6
+# clocks of issue: the issue rate bounds it, 0.2149 ms at (12, 2^18)
+# (with the MDS term as two 32x32->64 products: 27,955 and 13,344,
+# 0.2188 ms).
 OPS_POSEIDON = (8 * OPS_FULL_ROUND + OPS_PARTIAL_ENTRY
                 + 22 * OPS_PARTIAL_ROUND - OPS_ADD)
 MUL_POSEIDON = 8 * MUL_FULL_ROUND + MUL_PARTIAL_ENTRY + 22 * MUL_PARTIAL_ROUND
@@ -353,6 +364,7 @@ def check_kernels(device, rng) -> dict:
         raise AssertionError("gl_poseidon_init took MDS tables other than its own")
     ms = cuda_ms(lambda: pos.permute(st), 20)
     plain_ms = cuda_ms(lambda: pos.permute_plain(st), 3)
+    results["permutations"] = {"poseidon": 1 << 18}
     record("poseidon", err, ms, plain_ms,
            bound(2 * 8 * pos.WIDTH * (1 << 18), OPS_POSEIDON * (1 << 18),
                  MUL_POSEIDON * (1 << 18)),
@@ -415,10 +427,15 @@ def check_kernels(device, rng) -> dict:
 
     err = 0
     small = 1 << 14
+    # csrc/poseidon.cu runs one block of 640 threads per SM from 320 items
+    # per SM: the widths at both launch shapes, the big one with 77 threads
+    # going round the grid a second time
+    big = torch.cuda.get_device_properties(device).multi_processor_count * 640 + 77
     widths = (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 94, 134)
     for C in widths:
-        cols = rand_edges((C, small))
-        err = max(err, max_abs_err(pos.leaves(cols), pos.leaves_plain(cols)))
+        for n_leaves in (small, big):
+            cols = rand_edges((C, n_leaves))
+            err = max(err, max_abs_err(pos.leaves(cols), pos.leaves_plain(cols)))
         if C <= dmerkle.NOOP_MAX:
             err = max(err, max_abs_err(
                 dmerkle.leaf_digests(cols, "poseidon"),
@@ -433,31 +450,38 @@ def check_kernels(device, rng) -> dict:
     plain_cols = lde[:, :PLAIN_N].contiguous()
     plain_ms = cuda_ms(lambda: pos.leaves_plain(plain_cols), 1)
     perms = (C + pos.RATE - 1) // pos.RATE * n
+    results["permutations"]["poseidon_leaves"] = perms
     record("poseidon_leaves", err, ms, plain_ms,
            bound(8 * C * n + 64 * n, OPS_POSEIDON * perms, MUL_POSEIDON * perms),
-           f"C in {widths} at n=2^14 (edge leaves; C<=4 also through "
-           f"leaf_digests' noop rule); (94,2^23) with times, its first and "
-           f"last 2^14 leaves vs plain; plain timed at (94,{PLAIN_N})")
+           f"C in {widths} at n=2^14 and n={big} (edge leaves; C<=4 also "
+           f"through leaf_digests' noop rule); (94,2^23) with times, its first "
+           f"and last 2^14 leaves vs plain; plain timed at (94,{PLAIN_N})")
     results["poseidon_leaves"]["plain_shape"] = [C, PLAIN_N]
     del lde, plain_cols
 
-    # one Poseidon tree level: 2^16 -> 2^15 against the plain version, the
-    # smallest level, then 2^23 -> 2^22 over the digests above with times
+    # one Poseidon tree level: 2^16 -> 2^15 and 2 * big -> big against the
+    # plain version, the smallest level, then 2^23 -> 2^22 over the digests
+    # above with times
     level_in = pos.leaves(rand_edges((4, 1 << 16)))
     err = max_abs_err(pos.level(level_in), pos.level_plain(level_in))
     pair = level_in[:, :2].contiguous()
     err = max(err, max_abs_err(pos.level(pair), pos.level_plain(pair)))
+    level_big = rand_on_card((8, 2 * big), 1 << 32)
+    err = max(err, max_abs_err(pos.level(level_big), pos.level_plain(level_big)))
+    del level_big
     parents = pos.level(digs)
     err = max(err, max_abs_err(parents[:, :small],
                                pos.level_plain(digs[:, :2 * small].contiguous())))
     ms = cuda_ms(lambda: pos.level(digs), 10)
     plain_in = digs[:, :PLAIN_N].contiguous()
     plain_ms = cuda_ms(lambda: pos.level_plain(plain_in), 2)
+    results["permutations"]["poseidon_level"] = n // 2
     record("poseidon_level", err, ms, plain_ms,
            bound(64 * n + 32 * n, OPS_POSEIDON * (n // 2),
                  MUL_POSEIDON * (n // 2)),
-           f"(8,2^16) -> (8,2^15), (8,2) -> (8,1), the first 2^14 parents of "
-           f"(8,2^23) -> (8,2^22); times at 2^23, plain timed at {PLAIN_N}")
+           f"(8,2^16) -> (8,2^15), (8,{2 * big}) -> (8,{big}), (8,2) -> "
+           f"(8,1), the first 2^14 parents of (8,2^23) -> (8,2^22); times at "
+           f"2^23, plain timed at {PLAIN_N}")
     results["poseidon_level"]["plain_shape"] = [8, PLAIN_N]
     del digs, parents, plain_in
     torch.cuda.synchronize()
@@ -613,7 +637,9 @@ def merkle_hash_counts(ola, table_shapes, config) -> dict:
     return counts
 
 
-def check_golden(report: dict, golden_file: str) -> None:
+def check_golden(report: dict, golden_file: str) -> dict:
+    """The proof's N, public values, sha256 and length against a golden of
+    olavm_tpu's; returns what was compared."""
     with open(os.path.join(FIXTURES, golden_file)) as f:
         golden = json.load(f)
     for key in ("N", "public_values", "proof_sha256", "proof_bytes"):
@@ -621,6 +647,11 @@ def check_golden(report: dict, golden_file: str) -> None:
             raise AssertionError(
                 f"{golden_file}: proof {key} {report[key]!r} differs from the "
                 f"golden {golden[key]!r}")
+    log(f"    N={golden['N']}: proof {golden['proof_bytes']} bytes, sha256 "
+        f"{golden['proof_sha256']} equals {golden_file}")
+    return {"golden": golden_file, "N": golden["N"],
+            "proof_sha256": golden["proof_sha256"],
+            "proof_bytes": golden["proof_bytes"]}
 
 
 def cli_path(workdir: str) -> dict:
@@ -659,11 +690,15 @@ PATH_KERNELS = {
     "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level"),
     "poseidon": SHARED_KERNELS + ("poseidon_leaves", "poseidon_level"),
 }
-# the proofs at N=94000: blake3's unchanged since the port's first slice,
-# Poseidon's since its first run on the card
-FULL_SHA256 = {
-    "blake3": "a51b8b3b86c295e4703676eb6f7b54ee717fb0450812c8d904361182d0d06206",
-    "poseidon": "4230d1e8fcc60daec573fbe6922745a0e149c57eaf59ec095360e78f912e7b32",
+# the goldens of each path: olavm_tpu's host prover on the same program
+# (tests/test_torch_golden.py), at N=10 and at FULL_N
+GOLDENS = {
+    "blake3": "fib_loop_golden.json",
+    "poseidon": "fib_loop_golden_poseidon.json",
+}
+FULL_GOLDENS = {
+    "blake3": "fib_loop_golden_full.json",
+    "poseidon": "fib_loop_golden_full_poseidon.json",
 }
 
 
@@ -737,14 +772,12 @@ def run() -> int:
         # the same traces
         small = prepare(10, workdir)
         report["golden"] = {}
-        for hasher, golden_file in (("blake3", "fib_loop_golden.json"),
-                                    ("poseidon", "fib_loop_golden_poseidon.json")):
+        for hasher, golden_file in GOLDENS.items():
             log(f"[3] golden parity at N=10, {hasher} Merkle caps "
                 f"(at {time.perf_counter() - started:.1f} s)")
             _, rep = prove_and_verify(small, device, hasher)
-            check_golden(rep, golden_file)
-            log(f"    proof {rep['proof_bytes']} bytes, sha256 matches "
-                f"{golden_file}; verified ({rep['seconds']})")
+            rep["golden"] = check_golden(rep, golden_file)
+            log(f"    verified ({rep['seconds']})")
             report["golden"][hasher] = rep
         del small
         torch.cuda.empty_cache()
@@ -785,10 +818,9 @@ def run() -> int:
                 raise AssertionError(f"kernels of another path launched on "
                                      f"the {hasher} path: {stray}")
             torch.cuda.empty_cache()
-        for hasher, digest in FULL_SHA256.items():
-            if report["full"][hasher]["proof_sha256"] != digest:
-                raise AssertionError(f"the {hasher} path's N={FULL_N} proof "
-                                     f"changed")
+        for hasher, golden_file in FULL_GOLDENS.items():
+            report["full"][hasher]["golden"] = check_golden(
+                report["full"][hasher], golden_file)
         del full_prep
 
         # 5. the CLI on the card, in this process
@@ -826,6 +858,9 @@ def run() -> int:
                  "launches": full["launches"],
                  "proof_sha256": full["proof_sha256"]}
         for hasher, full in report["full"].items()}}))
+    print(json.dumps({"ns_per_permutation": {
+        name: report["kernels"][name]["ms"] * 1e6 / perms
+        for name, perms in report["kernels"]["permutations"].items()}}))
     print(json.dumps(kernel_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,29 @@ __device__ __forceinline__ uint64_t canonical(uint64_t x) {
 // canonical ("lazy"): enough for an operand of a product, of a sum, or of
 // `add`, and `canonical` ends such a chain.
 
+// x + c mod p, lazy, for any 64-bit x and canonical c: on a carry out of 64
+// bits the sum wrapped to at most p - 2, and adding 2^64 = EPSILON back
+// cannot carry again (no compare and select, where `add` needs two)
+__device__ __forceinline__ uint64_t add_lazy(uint64_t x, uint64_t c) {
+#ifdef __CUDA_ARCH__
+  uint32_t x0 = static_cast<uint32_t>(x), x1 = static_cast<uint32_t>(x >> 32);
+  // + cy * EPSILON as + cy * 2^32 - cy
+  asm("{\n\t.reg .u32 cy;\n\t"
+      "add.cc.u32  %0, %0, %2;\n\t"
+      "addc.cc.u32 %1, %1, %3;\n\t"
+      "addc.u32    cy, 0, 0;\n\t"
+      "sub.cc.u32  %0, %0, cy;\n\t"
+      "subc.u32    %1, %1, 0;\n\t"
+      "add.u32     %1, %1, cy;\n\t}"
+      : "+r"(x0), "+r"(x1)
+      : "r"(static_cast<uint32_t>(c)), "r"(static_cast<uint32_t>(c >> 32)));
+  return (static_cast<uint64_t>(x1) << 32) | x0;
+#else
+  const uint64_t s = x + c;
+  return s < x ? s + EPSILON : s;
+#endif
+}
+
 // x - k mod p, lazy, for k < 2^32
 __device__ __forceinline__ uint64_t sub_small(uint64_t x, uint32_t k) {
 #ifdef __CUDA_ARCH__
@@ -109,33 +132,6 @@ __device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
 
 __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
   return canonical(reduce128_lazy(lo, hi));
-}
-
-// lo + hi * 2^32 for hi < 2^63, lazy
-__device__ __forceinline__ uint64_t reduce_shifted_lazy(uint64_t lo, uint64_t hi) {
-#ifdef __CUDA_ARCH__
-  uint32_t x1 = static_cast<uint32_t>(lo >> 32), h1 = static_cast<uint32_t>(hi >> 32);
-  asm("add.cc.u32 %0, %0, %2;\n\t"
-      "addc.u32   %1, %1, 0;"
-      : "+r"(x1), "+r"(h1)
-      : "r"(static_cast<uint32_t>(hi)));
-  return add_eps((static_cast<uint64_t>(x1) << 32) | static_cast<uint32_t>(lo), h1);
-#else
-  const uint64_t l = lo + (hi << 32);
-  return add_eps(l, static_cast<uint32_t>((hi >> 32) + (l < lo)));
-#endif
-}
-
-// acc + a * b for 32-bit a and b: one multiply-add on the card, also when b
-// is a compile-time constant (the compiler would otherwise turn a small
-// constant into 64-bit shifts and adds)
-__device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint32_t b, uint64_t acc) {
-#ifdef __CUDA_ARCH__
-  asm("mad.wide.u32 %0, %1, %2, %0;" : "+l"(acc) : "r"(a), "r"(b));
-  return acc;
-#else
-  return acc + static_cast<uint64_t>(a) * b;
-#endif
 }
 
 // a * b as 128 bits, a and b any 64-bit words

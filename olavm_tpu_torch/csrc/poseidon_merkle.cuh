@@ -3,8 +3,9 @@
 //
 // Device functions only, on poseidon::permute (poseidon_perm.cuh): like that
 // header, a host compiler builds this file with the CUDA qualifiers defined
-// away (tests/test_torch_poseidon_host.py), so the sponge and the
-// compression are held against the numpy hasher without a card.
+// away (tests/test_torch_poseidon_host.py), so the absorb step (in the leaf
+// kernel's chunk loop there) and the compression are held against the numpy
+// hasher without a card.
 //
 // Follows olavm_tpu/merkle/device.py:42-69 (the leaf sponge) and :186-199
 // (compress_digests), which are plonky2's hash_no_pad and two_to_one
@@ -21,19 +22,17 @@ namespace poseidon {
 constexpr int RATE = 8;
 constexpr int DIGEST = 4;
 
-// the sponge over one leaf: element c at col[c * stride], C >= 1 canonical
-// elements; s holds the final state
-__device__ __forceinline__ void sponge(const uint64_t* col, int64_t stride,
-                                       int C, uint64_t* s) {
+// words 0..k-1 of s <- chunk[i * stride], a chunk of 1 <= k <= 8 elements
+// (only the last chunk of a leaf may be short)
+__device__ __forceinline__ void absorb(uint64_t* s, const uint64_t* chunk,
+                                       int64_t stride, int k) {
+  if (k == RATE) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = 0;
-#pragma unroll 1
-  for (int start = 0; start < C; start += RATE) {
-    const int chunk = C - start < RATE ? C - start : RATE;
+    for (int i = 0; i < RATE; ++i) s[i] = chunk[i * stride];
+  } else {
 #pragma unroll
     for (int i = 0; i < RATE; ++i)
-      if (i < chunk) s[i] = col[(start + i) * stride];
-    permute(s);
+      if (i < k) s[i] = chunk[i * stride];
   }
 }
 

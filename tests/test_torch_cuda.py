@@ -160,8 +160,9 @@ def test_poseidon_init_refuses_other_mds_tables(dev, table):
 
 
 @pytest.mark.parametrize("C", [1, 4, 5, 8, 9, 16, 17, 32, 94, 134])
-def test_poseidon_leaves_kernel_matches_plain(dev, C):
-    rows = _rand((1000, C), C)
+@pytest.mark.parametrize("n", [1000, 129])
+def test_poseidon_leaves_kernel_matches_plain(dev, C, n):
+    rows = _rand((n, C), C)
     rows[0], rows[1] = g.P - 1, 0
     cols = convert.from_u64(rows.T.copy(), dev)
     before = kernels.LAUNCHES["poseidon_leaves"]
@@ -176,7 +177,7 @@ def test_poseidon_leaves_kernel_matches_plain(dev, C):
     assert torch.equal(digs.cpu(), tmerkle.leaf_digests(cols.cpu(), "poseidon"))
 
 
-@pytest.mark.parametrize("n", [2, 6, 1 << 12])
+@pytest.mark.parametrize("n", [2, 6, 1 << 12, 2 * 1001, 2 * 32769])
 def test_poseidon_level_kernel_matches_plain(dev, n):
     digs = tpos.leaves(convert.from_u64(_rand((4, n), n), dev))
     before = kernels.LAUNCHES["poseidon_level"]
@@ -184,6 +185,39 @@ def test_poseidon_level_kernel_matches_plain(dev, n):
     assert kernels.LAUNCHES["poseidon_level"] == before + 1
     assert torch.equal(got, tpos.level_plain(digs))
     assert torch.equal(got.cpu(), tpos.level(digs.cpu()))
+
+
+def _big_path_n(dev) -> int:
+    """An odd item count that takes the Merkle kernels' 640-thread path
+    (csrc/poseidon.cu: one block per SM from 320 items per SM), one more
+    round of the grid for 77 threads: not a multiple of any block."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 640 + 77
+
+
+@pytest.mark.parametrize("C", [1, 5, 8, 9, 17, 94, 134])
+def test_poseidon_leaves_kernel_big_path_matches_plain(dev, C):
+    n = _big_path_n(dev)
+    cols = torch.randint(0, 1 << 62, (C, n), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(C))
+    cols[:, 0] = int(np.uint64(g.P - 1).view(np.int64))  # p - 1 as stored
+    cols[:, 1] = 0
+    got = tpos.leaves(cols)
+    # the plain version in pieces (its temporaries grow with C * n)
+    for part in range(0, n, 1 << 16):
+        sl = slice(part, min(part + (1 << 16), n))
+        assert torch.equal(got[:, sl], tpos.leaves_plain(cols[:, sl].contiguous()))
+
+
+def test_poseidon_level_kernel_big_path_matches_plain(dev):
+    parents = _big_path_n(dev)
+    digs = torch.randint(0, 1 << 32, (8, 2 * parents), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    got = tpos.level(digs)
+    for part in range(0, parents, 1 << 16):
+        sl = slice(part, min(part + (1 << 16), parents))
+        want = tpos.level_plain(digs[:, 2 * sl.start:2 * sl.stop].contiguous())
+        assert torch.equal(got[:, sl], want)
 
 
 def test_poseidon_merkle_kernels_refuse_what_they_do_not_take(dev):

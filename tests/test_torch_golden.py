@@ -9,14 +9,21 @@ the CPU.
   merkle_hasher="poseidon";
 - tests/fixtures/cli_fib_golden.json: the proof that olavm_tpu's `ola` CLI
   writes for the same program through asm, run (calldata 0, 0) and
-  `prove -b host` (chip_smoke.cli_stages).
+  `prove -b host` (chip_smoke.cli_stages);
+- tests/fixtures/fib_loop_golden_full.json and
+  fib_loop_golden_full_poseidon.json: the first two at the full size,
+  N=94000 (2^20 CPU rows; chip_smoke.FULL_N).
 
 chip_smoke.py proves the same programs with the port on the card and
 compares against them. The slow tests recompute each golden with
 olavm_tpu; running this file as a script (`python tests/test_torch_golden.py`)
-rewrites all three.
+rewrites the three at N=10, and with `--full blake3` or `--full poseidon`
+one of the full-size goldens (tens of minutes and tens of GiB of host
+memory each: run it alone). It prints each golden's seconds and the
+process's peak resident memory.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -29,6 +36,10 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = os.path.join(FIXTURES, "fib_loop_golden.json")
 GOLDEN_POSEIDON = os.path.join(FIXTURES, "fib_loop_golden_poseidon.json")
 GOLDEN_CLI = os.path.join(FIXTURES, "cli_fib_golden.json")
+GOLDEN_FULL = {
+    "blake3": os.path.join(FIXTURES, "fib_loop_golden_full.json"),
+    "poseidon": os.path.join(FIXTURES, "fib_loop_golden_full_poseidon.json"),
+}
 GOLDEN_N = 10
 
 
@@ -81,10 +92,18 @@ def cli_golden_record(n: int = GOLDEN_N) -> dict:
             "proof_bytes": len(data)}
 
 
+def full_golden_record(merkle_hasher: str) -> dict:
+    from chip_smoke import FULL_N
+
+    return golden_record(FULL_N, merkle_hasher)
+
+
 RECORDS = {
     GOLDEN: golden_record,
     GOLDEN_POSEIDON: lambda: golden_record(merkle_hasher="poseidon"),
     GOLDEN_CLI: cli_golden_record,
+    **{path: functools.partial(full_golden_record, hasher)
+       for hasher, path in GOLDEN_FULL.items()},
 }
 
 
@@ -96,12 +115,27 @@ def test_golden_matches_reference_prover(path):
 
 
 if __name__ == "__main__":
+    import argparse
+    import resource
+    import time
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--full", choices=sorted(GOLDEN_FULL),
+                        help="rewrite this hasher's full-size golden only")
+    args = parser.parse_args()
     # the repository root, for chip_smoke
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    for path, record in RECORDS.items():
+    paths = [GOLDEN_FULL[args.full]] if args.full else [GOLDEN, GOLDEN_POSEIDON,
+                                                          GOLDEN_CLI]
+    for path in paths:
+        t0 = time.perf_counter()
+        result = RECORDS[path]()
         with open(path, "w") as f:
-            json.dump(record(), f, indent=1)
+            json.dump(result, f, indent=1)
             f.write("\n")
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB
+        print(f"{os.path.basename(path)}: {time.perf_counter() - t0:.1f} s, "
+              f"peak resident {peak:.2f} GiB so far")

@@ -63,12 +63,19 @@ extern "C" void k2_permute(const uint64_t* in, uint64_t* out, int64_t n) {
   }
 }
 
-// the leaf kernel's loop: (C, n) columns -> (4, n) digest elements
+// the leaf kernel's chunk loop (poseidon.cu leaves_kernel, without the
+// staging): (C, n) columns -> (4, n) digest elements
 extern "C" void k2_leaves(const uint64_t* cols, uint64_t* out, int64_t n,
                           int C) {
+  const int chunks = (C + RATE - 1) / RATE;
+  const int last = C - (chunks - 1) * RATE;
   for (int64_t t = 0; t < n; ++t) {
-    uint64_t s[WIDTH];
-    sponge(cols + t, n, C, s);
+    uint64_t s[WIDTH] = {};
+    for (int c = 0; c < chunks; ++c) {
+      absorb(s, cols + static_cast<int64_t>(c) * RATE * n + t, n,
+             c + 1 == chunks ? last : RATE);
+      permute(s);
+    }
     for (int w = 0; w < DIGEST; ++w) out[w * n + t] = s[w];
   }
 }
@@ -87,8 +94,8 @@ extern "C" void k2_level(const uint64_t* digests, uint64_t* out, int64_t n) {
   }
 }
 
-extern "C" uint64_t k2_reduce_shifted(uint64_t lo, uint64_t hi) {
-  return gl::reduce_shifted_lazy(lo, hi);
+extern "C" uint64_t k2_limbs(uint32_t s0, uint32_t s1, uint32_t s2) {
+  return limbs_to_lazy(s0, s1, s2);
 }
 
 extern "C" uint64_t k2_reduce160(uint64_t lo, uint64_t hi, uint32_t top) {
@@ -100,6 +107,8 @@ extern "C" uint64_t k2_reduce128(uint64_t lo, uint64_t hi) {
 }
 
 extern "C" uint64_t k2_mul(uint64_t a, uint64_t b) { return gl::mul(a, b); }
+
+extern "C" uint64_t k2_add_lazy(uint64_t x, uint64_t c) { return gl::add_lazy(x, c); }
 
 extern "C" void k2_mul_small(uint64_t a, uint32_t c, uint64_t* out) {
   const gl::u128 w = mul_small(a, c);
@@ -136,15 +145,16 @@ def k2(tmp_path_factory):
     lib.k2_leaves.restype = None
     lib.k2_level.argtypes = [vp, vp, ctypes.c_int64]
     lib.k2_level.restype = None
-    lib.k2_reduce_shifted.argtypes = [u64, u64]
+    lib.k2_limbs.argtypes = [u32, u32, u32]
     lib.k2_reduce160.argtypes = [u64, u64, u32]
     lib.k2_reduce128.argtypes = [u64, u64]
     lib.k2_mul.argtypes = [u64, u64]
+    lib.k2_add_lazy.argtypes = [u64, u64]
     lib.k2_mul_small.argtypes = [u64, u32, vp]
     lib.k2_mul_small.restype = None
     lib.k2_dot.argtypes = [vp, vp, ctypes.c_int]
-    for fn in ("k2_reduce_shifted", "k2_reduce160", "k2_reduce128", "k2_mul",
-               "k2_dot"):
+    for fn in ("k2_limbs", "k2_reduce160", "k2_reduce128", "k2_mul",
+               "k2_dot", "k2_add_lazy"):
         getattr(lib, fn).restype = u64
     tables = tpos._kernel_tables()
     assert lib.k2_init(*[t.ctypes.data for t in tables]) == 0
@@ -213,11 +223,13 @@ def _lazy(got: int, value: int) -> bool:
 
 
 def test_reductions_at_the_ends_of_their_ranges(k2):
-    # the MDS sums: each below 264 * 2^32
-    top = 264 * (2**32 - 1)
-    for lo in (0, 1, top, 2**32 - 1):
-        for hi in (0, 1, top, 2**32, 2**32 - 1, (2**32 - 1) * 255):
-            assert _lazy(k2.k2_reduce_shifted(lo, hi), lo + (hi << 32))
+    # the MDS layer's three limb sums: below 264 * 2^22 (264 * 2^20 for the
+    # top limb) in the permutation, below 2^32 as the function allows
+    for s0 in (0, 1, 264 * (2**22 - 1), 2**32 - 1):
+        for s1 in (0, 1, 264 * (2**22 - 1), 2**32 - 1):
+            for s2 in (0, 1, 2**20, 264 * (2**20 - 1), 2**32 - 1):
+                assert _lazy(k2.k2_limbs(s0, s1, s2),
+                             s0 + (s1 << 22) + (s2 << 44))
     for lo in (0, 1, 2**32 - 1, 2**32, P - 1, P, M64 - 2**32, M64):
         for hi in (0, 1, 2**32 - 1, 2**32, P - 1, P, 2**64 - 2**32, M64):
             assert _lazy(k2.k2_reduce128(lo, hi), lo + (hi << 64))
@@ -228,6 +240,9 @@ def test_reductions_at_the_ends_of_their_ranges(k2):
     words = (0, 1, P - 1, P, 2**32 - 1, 2**32, 0xFFFFFFFEFFFFFFFF, M64)
     buf = np.zeros(2, dtype=np.uint64)
     for a in words:
+        # a lazy word plus a canonical constant, also where the sum carries
+        for c in (0, 1, 2**32 - 1, 2**32, P - 2, P - 1):
+            assert _lazy(k2.k2_add_lazy(a, c), a + c)
         for b in words:
             assert k2.k2_mul(a, b) == (a * b) % P
         for c in (1, 25, 49):
