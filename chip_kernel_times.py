@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Time the NTT (K1) and Poseidon kernels of this checkout at the main
-path's shapes, and count the SASS instructions of their kernels.
+"""Time the NTT (K1), Poseidon, absorb and evaluation (K5) kernels of this
+checkout at the main path's shapes, and count the SASS instructions of their
+kernels.
 
     python3 chip_kernel_times.py                    # all; one CUDA card, nvcc
     python3 chip_kernel_times.py --kernel poseidon  # libposeidon's kernels only
+    python3 chip_kernel_times.py --kernel absorb    # the streamed commit's
+    python3 chip_kernel_times.py --kernel eval      # K5
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
 after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
@@ -11,8 +14,12 @@ after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
 "ms": {shape: milliseconds}}. For libposeidon, "ms" holds K2 at (12, n)
 states ("12x2^18"), the leaf sponge at (C, n) columns ("leaves 94x2^23") and
 one tree level of n digests ("level 2^23"), and "ns_per_permutation" each
-time over its permutations (ceil(C / 8) per leaf, one per parent). The whole
-disassembly of each built library goes to chip_smoke_out/<source>.sass.
+time over its permutations (ceil(C / 8) per leaf, one per parent). For
+`absorb`, "ms" holds gl_blake3_absorb and gl_poseidon_absorb on one (W, n)
+block of LDE columns with the states an earlier block left ("blake3
+16x2^23"), and "ns_per_permutation" the Poseidon ones; for `eval`, K5 on (C,
+n) coefficients at k points ("94x2^20 at 28"). The whole disassembly of each
+built library goes to chip_smoke_out/<source>.sass.
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -40,7 +47,17 @@ SHAPES = {
     "ntt": ((16, 1 << 23), (18, 1 << 24), (16, 1 << 21), (16, 1 << 20),
             (16, 1 << 17), (3, 1 << 13), (134, 1024), (53, 16)),
     "poseidon": ((12, 1 << 18), (12, 1 << 20), (12, 1 << 14)),
+    # absorbed blocks (W, n): the streamed commit's 16 columns at the
+    # 2^20- and 2^22-row CpuStark LDEs, and a last block of 8
+    "absorb": ((16, 1 << 23), (16, 1 << 25), (8, 1 << 23)),
+    # (C, n, k): the FRI query leaves of the CpuStark trace at 2^20 and 2^22
+    # rows, the openings' 4 rows, the widest table's query leaves
+    "eval": ((94, 1 << 20, 28), (94, 1 << 22, 28), (94, 1 << 20, 4),
+             (134, 1024, 28)),
 }
+# the csrc sources that hold each choice's kernels
+LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
+        "absorb": ("blake3", "poseidon"), "eval": ("eval",)}
 # libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
 # the FRI trees' arity-16 extension leaves, one permutation per leaf) and
 # tree levels of n digests
@@ -151,18 +168,24 @@ def main() -> int:
     from olavm_tpu_torch import kernels
 
     names = [args.kernel] if args.kernel else sorted(SHAPES)
-    kernels.build(names, force=True)
+    libs = sorted({lib for name in names for lib in LIBS[name]})
+    kernels.build(libs, force=True)
     products = product_counts(str(kernels.CSRC))
-    for name in names:
-        sass = disassemble(str(kernels._lib_path(name)))
-        os.makedirs(chip_smoke.REPORT_DIR, exist_ok=True)
-        with open(os.path.join(chip_smoke.REPORT_DIR, f"{name}.sass"), "w") as f:
+    counts = {}
+    os.makedirs(chip_smoke.REPORT_DIR, exist_ok=True)
+    for lib in libs:
+        sass = disassemble(str(kernels._lib_path(lib)))
+        with open(os.path.join(chip_smoke.REPORT_DIR, f"{lib}.sass"), "w") as f:
             f.write(sass)
+        counts[lib] = sass_counts(sass)
+    for name in names:
         result = {
             "root": ROOT, "kernel": name, "card": chip_smoke.nvidia_smi(),
-            "ptxas": [ln.strip() for ln in kernels.BUILD_LOG[name].splitlines()
+            "ptxas": [ln.strip() for lib in LIBS[name]
+                      for ln in kernels.BUILD_LOG[lib].splitlines()
                       if "registers" in ln or "spill" in ln],
-            "sass": {"kernels": sass_counts(sass),
+            "sass": {"kernels": {k: v for lib in LIBS[name]
+                                 for k, v in counts[lib].items()},
                      "products": products},
             **time_kernel(name, chip_smoke.cuda_ms)}
         print(json.dumps(result))
@@ -179,6 +202,10 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if kernel == "absorb":
+        return time_absorb(gen, cuda_ms)
+    if kernel == "eval":
+        return time_eval(gen, cuda_ms)
     if kernel == "ntt":
         from olavm_tpu_torch.ntt import ntt as dntt
 
@@ -213,6 +240,50 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return {"ms": ms}
     return {"ms": ms, "ns_per_permutation": {
         k: v * 1e6 / perms[k] for k, v in ms.items()}}
+
+
+def time_absorb(gen, cuda_ms) -> dict:
+    """The absorb kernels on blocks of SHAPES["absorb"], each on the states
+    an earlier block left (written in place, so the calls chain)."""
+    import torch
+
+    from olavm_tpu_torch.hash import poseidon as pos
+    from olavm_tpu_torch.merkle import device as dmerkle
+
+    ms, perms = {}, {}
+    for W, n in SHAPES["absorb"]:
+        block = torch.randint(0, 1 << 62, (W, n), generator=gen, device="cuda")
+        # blake3: message blocks 2 and 3 (W = 16) or 2 of a 32-column leaf
+        meta = [m[2:2 + W // 8] for m in dmerkle.absorb_block_meta(32)]
+        state = torch.randint(0, 1 << 32, (8, n), generator=gen, device="cuda")
+        key = f"{W}x{_log2(n)}"
+        ms[f"blake3 {key}"] = cuda_ms(
+            lambda: dmerkle.blake3_absorb(block, state, None, *meta), 10)
+        del state
+        state = torch.randint(0, 1 << 62, (pos.WIDTH, n), generator=gen,
+                              device="cuda")
+        ms[f"poseidon {key}"] = cuda_ms(lambda: pos.absorb(block, state, False),
+                                        5)
+        perms[f"poseidon {key}"] = -(-W // pos.RATE) * n
+        del block, state
+    return {"ms": ms, "ns_per_permutation": {
+        k: ms[k] * 1e6 / v for k, v in perms.items()}}
+
+
+def time_eval(gen, cuda_ms) -> dict:
+    """K5 on (C, n) coefficients at k points of SHAPES["eval"]."""
+    import torch
+
+    from olavm_tpu_torch.field import gf
+
+    ms = {}
+    for C, n, k in SHAPES["eval"]:
+        coeffs = torch.randint(0, 1 << 62, (C, n), generator=gen, device="cuda")
+        pows = torch.randint(0, 1 << 62, (k, n), generator=gen, device="cuda")
+        ms[f"{C}x{_log2(n)} at {k}"] = cuda_ms(
+            lambda: gf.eval_points(coeffs, pows), 10)
+        del coeffs, pows
+    return {"ms": ms}
 
 
 if __name__ == "__main__":

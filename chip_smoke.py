@@ -11,7 +11,10 @@ without printing a result:
 2. each kernel against its plain PyTorch version on the card, bit-exact
    (tolerance 0: every value is exact field or hash arithmetic), with
    CUDA-event times of both and the least time the card could take for the
-   same work (`bound_ms`, from the shapes of this run);
+   same work (`bound_ms`, from the shapes of this run): K1 at every log n
+   from 1 to 26, the absorb kernels of the streamed commit at every leaf
+   width class (a streamed leaf hash also against the one-shot leaf kernel,
+   at (94, 2^23) too), K5 at (94, 2^20) x 28 points;
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card with blake3 and then with Poseidon Merkle caps (one trace
    generation) must serialize to the sha256 and length of the goldens that
@@ -20,25 +23,36 @@ without printing a result:
 4. full size: the fixture at N=94000 (2^20 CPU rows) through
    run_program_fast -> generate_traces_fast, then prove_with_traces_device
    -> verify_proof twice on those traces, with blake3 and with Poseidon
-   Merkle caps; every kernel's launch count is reset just before each prove
-   and read just after it. Each path must have launched its own kernels
-   (K1, K2, K3, add, sub and its hasher's leaf and level kernels) and no
-   kernel of the other hasher, and each proof must equal the golden that
-   olavm_tpu's host prover made at N=94000 (its sha256 and length,
-   tests/fixtures/fib_loop_golden_full.json and
-   fib_loop_golden_full_poseidon.json);
-5. the CLI on the card: ola-torch asm, run (calldata 0, 0), prove (its
+   Merkle caps, each proof equal to the golden that olavm_tpu's host prover
+   made at N=94000 (tests/fixtures/fib_loop_golden_full.json and
+   fib_loop_golden_full_poseidon.json); then N=376000 (2^22 CPU rows) with
+   blake3 caps, proved and verified (no golden exists at this size);
+5. the node: olavm_tpu_torch.node's OlaVM deploys the sccall fixture pair
+   (manual_deploy), runs the caller's tx (execute_tx), merges its envs
+   (gen_tx_trace) and generates its tables; the card proves them, the
+   verifier accepts, and the proof must equal
+   tests/fixtures/node_sccall_golden.json (olavm_tpu's node and host
+   prover);
+6. the CLI on the card: ola-torch asm, run (calldata 0, 0), prove (its
    default backend, the card) and verify at N=10, in this process through
    olavm_tpu_torch.cli.main.main; the proof must equal
    tests/fixtures/cli_fib_golden.json, which olavm_tpu's `ola` CLI wrote
    with its host prover.
 
+Every prove of phases 3-5 is one run of the main path: each kernel's launch
+count is reset just before it and read just after it; the run must have
+launched its hasher's kernels (K1, K2, K3, add, sub, K5 and the hasher's
+leaf, absorb and level kernels), none of the other hasher's, and its leaf
+and absorb kernels as often as its commits' shapes need. Each records prove
+and verify seconds, peak device memory and the host's peak resident memory.
+
 At the end neither jax nor any module of olavm_tpu may have been loaded. The
-last lines are the full-size runs' seconds, peak memory and launch counts,
-the nanoseconds per permutation of K2 and of the Poseidon leaf and level
-kernels at their largest shapes, the `kernels` JSON line (launches summed over the two full-size runs), the
-card's nvidia-smi line and the result line {"ok": true, "device": {...}}. A
-longer report goes to chip_smoke_out/report.json.
+last lines are every prove's seconds, peak memory, launch counts and
+sha256, the nanoseconds per permutation of K2 and of the Poseidon leaf and
+level kernels at their largest shapes, the `kernels` JSON line (launches
+summed over the proves), the card's nvidia-smi line and the result line
+{"ok": true, "device": {...}}. A longer report goes to
+chip_smoke_out/report.json.
 """
 
 from __future__ import annotations
@@ -176,6 +190,43 @@ def write_fib_program(n: int, directory: str) -> str:
     return path
 
 
+# the node path: a caller and a callee written by hand in the fixtures' asm
+# JSON, deployed at these addresses; the caller's tx makes one SCCALL (op1 0)
+NODE_CALLER = ("sccall_caller_asm.json", (1, 1, 1, 1))
+NODE_CALLEE = ("sccall_callee_asm.json", (1, 0, 1, 0))
+
+
+def node_tx(package: str = "olavm_tpu_torch"):
+    """Deploy the sccall fixture pair on a fresh in-memory node of `package`
+    (OlaVM.manual_deploy), run the caller's tx (execute_tx), merge its envs
+    (gen_tx_trace) and generate the 12 tables (generate_traces). Returns
+    (node, trace, traces, public_values, ola)."""
+    import importlib
+
+    encoder = importlib.import_module(f"{package}.assembler.encoder")
+    olavm = importlib.import_module(f"{package}.node.olavm")
+    ola_stark = importlib.import_module(f"{package}.tables.ola_stark")
+    proof = importlib.import_module(f"{package}.stark.proof")
+
+    node = olavm.OlaVM()
+    for name, addr in (NODE_CALLER, NODE_CALLEE):
+        node.manual_deploy(encoder.encode_asm_from_json_file(
+            os.path.join(FIXTURES, name)), addr)
+    node.execute_tx(NODE_CALLER[1], NODE_CALLER[1], list(NODE_CALLEE[1]))
+    trace = node.ola_state.gen_tx_trace()
+
+    class Executed:  # what generate_traces reads of a program
+        pass
+
+    program = Executed()
+    program.trace = trace
+    ola = ola_stark.OlaStark()
+    traces = ola_stark.generate_traces(program, ola)
+    pre, post = trace.start_end_roots
+    public_values = proof.PublicValues(tuple(pre), tuple(post), 0)
+    return node, trace, traces, public_values, ola
+
+
 def cli_stages(n: int, directory: str):
     """The argv of the CLI's asm, run, prove and verify stages on the fib-loop
     fixture at N=n with calldata 0, 0, all files in `directory` (the program
@@ -305,14 +356,15 @@ def check_kernels(device, rng) -> dict:
                "2^24 elements, edge grid, 0-dim operand on each side")
     del a, b
 
-    # K1: forward and inverse at every log n from 1 to 24 at a small batch (so
+    # K1: forward and inverse at every log n from 1 to 26 at a small batch (so
     # every split of the stages into passes runs, with blocks whose last
     # columns are empty), then at the commit shapes; (18, 2^24) is
-    # ProgramStark's x8 LDE, the largest n of the main path
+    # ProgramStark's x8 LDE at 2^20 CPU rows, and the 2^22-row prove reaches
+    # LDEs of 2^25 and 2^26 points
     err = 0
     times = {}
     passes = {}
-    shapes = [(3 if k <= 20 else 1, 1 << k) for k in range(1, 25)]
+    shapes = [(3 if k <= 20 else 1, 1 << k) for k in range(1, 27)]
     shapes += [(5, 1024), (134, 1024), (94, 1 << 20), (16, 1 << 23),
                (18, 1 << 24)]
     for shape in shapes:
@@ -342,7 +394,7 @@ def check_kernels(device, rng) -> dict:
         raise AssertionError(f"ntt launches per transform {passes}, not {want}")
     results["ntt_launches_per_transform"] = passes
     record("ntt", err, times["ms"], times["plain_ms"], times["least"],
-           "forward+inverse at (3,2^k) k=1..20, (1,2^k) k=21..24, (5,1024) "
+           "forward+inverse at (3,2^k) k=1..20, (1,2^k) k=21..26, (5,1024) "
            "(134,1024) (94,2^20) (16,2^23) (18,2^24); times at (16,2^23)")
 
     # K2: the PoW grind's batch against the plain version; the edge states
@@ -488,6 +540,164 @@ def check_kernels(device, rng) -> dict:
     return results
 
 
+def check_stream_kernels(device, rng) -> dict:
+    """The streamed commit's absorb kernels and K5 against their plain
+    versions, at every leaf width class and at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.hash import poseidon as pos
+    from olavm_tpu_torch.merkle import device as dmerkle
+    from olavm_tpu_torch.merkle.device import LeafStream
+    from olavm_tpu_torch.ntt import ntt as dntt
+    from olavm_tpu_torch.stark.oracle_device import DevicePolynomialBatch
+
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+
+    def rand(shape, high=1 << 62):
+        # canonical values below 2^62 (and p - 1 in the first leaf), on the card
+        x = torch.randint(0, high, shape, generator=gen, device=device)
+        if high > 1 << 32 and len(shape) == 2:
+            x[:, 0] = gf._i64(gf.P - 1)
+        return x
+
+    def stream(cols, hasher):
+        # the leaves absorbed in blocks of 16 columns, as a commit does
+        st = LeafStream(cols.shape[0], cols.shape[1], hasher)
+        for start in range(0, cols.shape[0], dmerkle.STREAM_BLOCK_COLS):
+            st.absorb(cols[start:start + dmerkle.STREAM_BLOCK_COLS].contiguous())
+        return st.finalize()
+
+    results = {}
+
+    def record(name, err, ms, plain_ms, least, detail):
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **least, "library_ms": None, "checked": detail}
+        log(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({detail})")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    # the Poseidon kernels' big launch shape from 320 leaves per SM, going
+    # round the grid a second time; 2^14 + 77 leaves: not a multiple of a
+    # block of threads
+    sizes = {"blake3": (1 << 14, (1 << 14) + 77),
+             "poseidon": (1 << 14, sms * 640 + 77)}
+    widths = {"blake3": (5, 8, 9, 16, 17, 29, 94, 128, 129, 134, 256),
+              "poseidon": (5, 8, 9, 16, 17, 29, 94, 134)}
+    n = 1 << 23
+    for hasher, name in (("blake3", "blake3_absorb"),
+                         ("poseidon", "poseidon_absorb")):
+        # the plain version of a leaf's absorbs is the plain sponge or chunk
+        # chain over all its columns at once
+        one_shot, plain_all = {
+            "blake3": (dmerkle.leaf_digests, dmerkle.leaf_digests_plain),
+            "poseidon": (pos.leaves, pos.leaves_plain)}[hasher]
+        err = 0
+        for C in widths[hasher]:
+            for n_leaves in sizes[hasher]:
+                cols = rand((C, n_leaves))
+                got = stream(cols, hasher)
+                err = max(err, max_abs_err(got, plain_all(cols)),
+                          max_abs_err(got, one_shot(cols)))
+        # C <= 4: a commit's leaves are its LDE values, streamed or not
+        for C in (1, 4):
+            coeffs = rand((C, 1 << 11))
+            batch = DevicePolynomialBatch.from_coeffs(coeffs, 3, 4, hasher)
+            lde = dntt.coset_lde(coeffs, 3)
+            err = max(err, max_abs_err(
+                batch.levels[0],
+                dmerkle.leaf_digests(lde, hasher)[
+                    :, dntt.bitrev_perm(lde.shape[1], device)]))
+        # one (16, 2^23) block on states left by an earlier block, timed;
+        # the plain version timed at (16, PLAIN_N) for Poseidon
+        block = rand((16, n))
+        if hasher == "blake3":
+            state = rand((8, n), 1 << 32)
+            meta = dmerkle.absorb_block_meta(32)
+            args = [m[2:4] for m in meta]
+
+            def kernel():
+                return dmerkle.blake3_absorb(block, state.clone(), None, *args)
+
+            def plain():
+                return dmerkle.blake3_absorb_plain(block, state, None, *args)
+
+            want = plain()
+            plain_shape = [16, n]
+            least = bound(8 * 16 * n + 2 * 64 * n, OPS_BLAKE3 * 2 * n,
+                          alu=ALU_BLAKE3 * 2 * n)
+        else:
+            state = pos.absorb(rand((8, n)), None, False)
+
+            def kernel():
+                return pos.absorb(block, state.clone(), False)
+
+            plain_block = block[:, :PLAIN_N].contiguous()
+            plain_state = state[:, :PLAIN_N].contiguous()
+
+            def plain():
+                return pos.absorb_plain(plain_block, plain_state, False)
+
+            want = plain()
+            plain_shape = [16, PLAIN_N]
+            least = bound(8 * 16 * n + 2 * 96 * n, OPS_POSEIDON * 2 * n,
+                          MUL_POSEIDON * 2 * n)
+        got = kernel()
+        err = max(err, max_abs_err(got[:, :want.shape[1]], want))
+        # the clone of the state is timed apart and taken off
+        clone_ms = cuda_ms(lambda: state.clone(), 10)
+        ms = cuda_ms(kernel, 10) - clone_ms
+        plain_ms = cuda_ms(plain, 1)
+        del block, state, got, want
+        # a streamed leaf hash of the CpuStark LDE's shape equals the
+        # one-shot leaf kernel
+        lde = rand((94, n))
+        err = max(err, max_abs_err(stream(lde, hasher), one_shot(lde)))
+        del lde
+        record(name, err, ms, plain_ms, least,
+               f"LeafStream of C in {widths[hasher]} at n in {sizes[hasher]} vs the "
+               f"plain leaf hash and the one-shot kernel; a commit's noop "
+               f"leaves at C in (1, 4); (16,2^23) block with "
+               f"times (plain at {plain_shape}); streamed (94,2^23) vs one-shot")
+        results[name]["plain_shape"] = plain_shape
+        torch.cuda.empty_cache()
+
+    # K5: the FRI query leaves of the CpuStark trace batch, (94, 2^20) x 28
+    # points, and small shapes (one term, a partial chunk, more than 32
+    # points, the openings' 4 rows)
+    err = 0
+    for C, n_terms, k in ((1, 1, 1), (3, 17, 5), (134, 1024, 28),
+                          (5, 1 << 14, 4), (2, 300, 40)):
+        coeffs = rand((C, n_terms))
+        pows = gf.power_rows([int(v) for v in rng.integers(
+            0, gf.P, k, dtype=np.uint64)], n_terms, device)
+        err = max(err, max_abs_err(gf.eval_points(coeffs, pows),
+                                   gf.eval_points_plain(coeffs, pows)))
+    C, n_terms, k = 94, 1 << 20, 28
+    coeffs = rand((C, n_terms))
+    points = [int(v) for v in rng.integers(0, gf.P, k, dtype=np.uint64)]
+    points[0] = gf.P - 1
+    pows = gf.power_rows(points, n_terms, device)
+    err = max(err, max_abs_err(gf.eval_points(coeffs, pows),
+                               gf.eval_points_plain(coeffs, pows)))
+    ms = cuda_ms(lambda: gf.eval_points(coeffs, pows), 10)
+    plain_ms = cuda_ms(lambda: gf.eval_points_plain(coeffs, pows), 1)
+    terms = k * C * n_terms
+    record("eval_points", err, ms, plain_ms,
+           bound(8 * (C + k) * n_terms + 8 * k * C,
+                 k * C * ops_dot(n_terms), MUL_PRODUCT * terms),
+           "(1,1)x1 (3,17)x5 (134,1024)x28 (5,2^14)x4 (2,300)x40; "
+           "(94,2^20)x28 with times")
+    del coeffs, pows
+    torch.cuda.synchronize()
+    return results
+
+
 def time_plain_steps(device, rng) -> dict:
     """Card times of the main-path steps that stay plain torch in this
     version (each becomes a hand-written kernel later)."""
@@ -571,6 +781,46 @@ def prepare(n: int, workdir: str):
     return prove, report, ola
 
 
+def prepare_node():
+    """node_tx's tables, as prepare() gives a program's: (prove, report,
+    ola)."""
+    import torch
+
+    from olavm_tpu_torch.stark.config import StarkConfig
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
+
+    t0 = time.perf_counter()
+    _, trace, traces, public_values, ola = node_tx()
+    seconds = {"execute_and_trace_gen": time.perf_counter() - t0}
+
+    def prove(device, timing=None, merkle_hasher="blake3"):
+        config = StarkConfig.standard_fast_config()
+        config.merkle_hasher = merkle_hasher
+        t0 = time.perf_counter()
+        proof = prove_with_traces_device(ola, config, traces,
+                                         public_values=public_values,
+                                         timing=timing, device=device)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0, config
+
+    report = {
+        "N": None, "steps": len(trace.exec), "sccall_rows": len(trace.sc_call),
+        "table_shapes": [list(t.shape) for t in traces],
+        "public_values": {
+            "pre_root": [int(x) for x in public_values.pre_state_root],
+            "post_root": [int(x) for x in public_values.post_state_root]},
+        "seconds": seconds,
+    }
+    return prove, report, ola
+
+
+def host_peak_resident() -> int:
+    """This process's peak resident memory so far, in bytes."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def prove_and_verify(prepared, device, merkle_hasher: str):
     """prove_with_traces_device -> verify_proof on prepare()'s traces with
     one Merkle hasher; returns (proof bytes, report)."""
@@ -608,49 +858,57 @@ def merkle_hash_counts(ola, table_shapes, config) -> dict:
     counted from the commits' shapes: per commit (trace, Z, quotient, each
     FRI tree), the leaves of more than 4 elements and their sponge
     permutations, ceil(C / 8) each, and the tree nodes above the cap, one
-    compression each. Equal for the two hashers, whose leaf rule is the same."""
+    compression each; the launches of the leaf kernels: the trace, Z and
+    quotient commits stream their LDE through the absorb kernel, one launch
+    per 16 columns, the FRI trees hash their leaves at once. Equal for the
+    two hashers, whose leaf rule is the same."""
     rate_bits = config.fri_config.rate_bits
     cap = 1 << config.fri_config.cap_height
     ctl_zs = [0] * len(table_shapes)
     for ctl in ola.cross_table_lookups:
         for t in (*ctl.looking_tables, ctl.looked_table):
             ctl_zs[t.table] += config.num_challenges
-    counts = {"leaf_launches": 0, "leaves": 0, "leaf_permutations": 0,
-              "compressions": 0}
+    counts = {"leaf_launches": 0, "absorb_launches": 0, "leaves": 0,
+              "leaf_permutations": 0, "compressions": 0}
 
-    def commit(C, n):
+    def commit(C, n, streamed):
         if C > 4:  # shorter leaves are their own digests
-            counts["leaf_launches"] += 1
+            if streamed:
+                counts["absorb_launches"] += -(-C // 16)
+            else:
+                counts["leaf_launches"] += 1
             counts["leaves"] += n
             counts["leaf_permutations"] += -(-C // 8) * n
         counts["compressions"] += max(n - cap, 0)
 
     for i, (stark, (cols, rows)) in enumerate(zip(ola.starks, table_shapes)):
         size = rows << rate_bits
-        commit(cols, size)
-        commit(stark.num_permutation_batches(config) + ctl_zs[i], size)
-        commit(stark.num_quotient_polys(config), size)
+        commit(cols, size, True)
+        commit(stark.num_permutation_batches(config) + ctl_zs[i], size, True)
+        commit(stark.num_quotient_polys(config), size, True)
         for arity_bits in config.fri_config.reduction_arity_bits(
                 rows.bit_length() - 1):
             size >>= arity_bits  # leaves of `arity` extension values
-            commit(2 << arity_bits, size)
+            commit(2 << arity_bits, size, False)
     return counts
 
 
 def check_golden(report: dict, golden_file: str) -> dict:
-    """The proof's N, public values, sha256 and length against a golden of
-    olavm_tpu's; returns what was compared."""
+    """The proof's public values, sha256 and length against a golden of
+    olavm_tpu's, and its N, steps, sccall rows and table shapes where the
+    golden has them; returns what was compared."""
     with open(os.path.join(FIXTURES, golden_file)) as f:
         golden = json.load(f)
-    for key in ("N", "public_values", "proof_sha256", "proof_bytes"):
+    for key in ("public_values", "proof_sha256", "proof_bytes",
+                *(k for k in ("N", "steps", "sccall_rows", "table_shapes")
+                  if k in golden)):
         if report[key] != golden[key]:
             raise AssertionError(
                 f"{golden_file}: proof {key} {report[key]!r} differs from the "
                 f"golden {golden[key]!r}")
-    log(f"    N={golden['N']}: proof {golden['proof_bytes']} bytes, sha256 "
+    log(f"    proof {golden['proof_bytes']} bytes, sha256 "
         f"{golden['proof_sha256']} equals {golden_file}")
-    return {"golden": golden_file, "N": golden["N"],
-            "proof_sha256": golden["proof_sha256"],
+    return {"golden": golden_file, "proof_sha256": golden["proof_sha256"],
             "proof_bytes": golden["proof_bytes"]}
 
 
@@ -685,11 +943,16 @@ def cli_path(workdir: str) -> dict:
 
 # the kernels of each full-size path: each must launch on its own path, and
 # the other Merkle hasher's kernels must not
-SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub")
+SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub",
+                  "eval_points")
 PATH_KERNELS = {
-    "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level"),
-    "poseidon": SHARED_KERNELS + ("poseidon_leaves", "poseidon_level"),
+    "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level",
+                                "blake3_absorb"),
+    "poseidon": SHARED_KERNELS + ("poseidon_leaves", "poseidon_level",
+                                  "poseidon_absorb"),
 }
+# 2^22 CPU rows: 4,136,005 steps
+LARGE_N = 376000
 # the goldens of each path: olavm_tpu's host prover on the same program
 # (tests/test_torch_golden.py), at N=10 and at FULL_N
 GOLDENS = {
@@ -700,6 +963,8 @@ FULL_GOLDENS = {
     "blake3": "fib_loop_golden_full.json",
     "poseidon": "fib_loop_golden_full_poseidon.json",
 }
+# the node tx's proof by olavm_tpu's node and host prover, blake3 caps
+NODE_GOLDEN = "node_sccall_golden.json"
 
 
 KERNELS = (
@@ -722,6 +987,12 @@ KERNELS = (
      "olavm_tpu/merkle/device.py:42", ("poseidon_leaves",)),
     ("poseidon_level", "cuda", "olavm_tpu_torch/csrc/poseidon.cu",
      "olavm_tpu/merkle/device.py:186", ("poseidon_level",)),
+    ("blake3_absorb", "cuda", "olavm_tpu_torch/csrc/blake3.cu",
+     "olavm_tpu/merkle/device.py:141", ("blake3_absorb",)),
+    ("poseidon_absorb", "cuda", "olavm_tpu_torch/csrc/poseidon.cu",
+     "olavm_tpu/merkle/device.py:141", ("poseidon_absorb",)),
+    ("eval_points", "cuda", "olavm_tpu_torch/csrc/eval.cu",
+     "olavm_tpu/stark/oracle_device.py:335", ("eval_points",)),
 )
 
 
@@ -764,8 +1035,47 @@ def run() -> int:
     log(f"[2] kernels against their plain versions "
         f"(at {time.perf_counter() - started:.1f} s)")
     report["kernels"] = check_kernels(device, rng)
+    report["kernels"].update(check_stream_kernels(device, rng))
     report["plain_steps_ms"] = time_plain_steps(device, rng)
     torch.cuda.empty_cache()
+
+    def path(label, prepared, hasher, golden_file):
+        """One path of the main path: every launch count set to 0 just
+        before its prove and read just after it (the verifier runs on the
+        host), its own kernels launched and the other hasher's not, its leaf
+        kernels launched as often as its commits' shapes need, and the proof
+        equal to its golden where there is one."""
+        kernels.reset_launches()
+        _, rep = prove_and_verify(prepared, device, hasher)
+        rep["label"] = label
+        launches = rep["launches"] = dict(kernels.LAUNCHES)
+        rep["host_peak_resident_bytes"] = host_peak_resident()
+        counts = rep["merkle_hashing"] = merkle_hash_counts(
+            prepared[2], rep["table_shapes"], StarkConfig.standard_fast_config())
+        for kind, key in (("leaves", "leaf_launches"),
+                          ("absorb", "absorb_launches")):
+            if launches[f"{hasher}_{kind}"] != counts[key]:
+                raise AssertionError(
+                    f"{hasher} {kind} launches {launches[f'{hasher}_{kind}']}, "
+                    f"the commits' shapes need {counts[key]}")
+        missing = [k for k in PATH_KERNELS[hasher] if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {hasher} "
+                                 f"path: {missing}")
+        stray = [k for k, v in launches.items()
+                 if v and k not in PATH_KERNELS[hasher]]
+        if stray:
+            raise AssertionError(f"kernels of another path launched on the "
+                                 f"{hasher} path: {stray}")
+        if golden_file:
+            rep["golden"] = check_golden(rep, golden_file)
+        log(f"    {label}: seconds {rep['seconds']}, peak "
+            f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB on the card, "
+            f"{rep['host_peak_resident_bytes'] / 2**30:.2f} GiB host resident, "
+            f"proof {rep['proof_bytes']} bytes sha256 {rep['proof_sha256']}, "
+            f"launches {launches}")
+        torch.cuda.empty_cache()
+        return rep
 
     with tempfile.TemporaryDirectory() as workdir:
         # 3. parity with the JAX package's goldens, both Merkle hashers on
@@ -775,56 +1085,37 @@ def run() -> int:
         for hasher, golden_file in GOLDENS.items():
             log(f"[3] golden parity at N=10, {hasher} Merkle caps "
                 f"(at {time.perf_counter() - started:.1f} s)")
-            _, rep = prove_and_verify(small, device, hasher)
-            rep["golden"] = check_golden(rep, golden_file)
-            log(f"    verified ({rep['seconds']})")
-            report["golden"][hasher] = rep
+            report["golden"][hasher] = path(f"N=10 {hasher}", small, hasher,
+                                            golden_file)
         del small
-        torch.cuda.empty_cache()
 
         # 4. the main path at full size, both Merkle hashers on the same
-        # traces, counting each path's launches
+        # traces, then 2^22 CPU rows with blake3 caps (no golden: olavm_tpu's
+        # host prover would need ~4 x 48.56 GiB of host memory)
         log(f"[4] main path at N={FULL_N} "
             f"(at {time.perf_counter() - started:.1f} s)")
         full_prep = prepare(FULL_N, workdir)
-        report["full"] = {}
-        for hasher, kernel_names in PATH_KERNELS.items():
-            kernels.reset_launches()
-            _, full = prove_and_verify(full_prep, device, hasher)
-            launches = dict(kernels.LAUNCHES)
-            full["launches"] = launches
-            full["merkle_hashing"] = merkle_hash_counts(
-                full_prep[2], full["table_shapes"],
-                StarkConfig.standard_fast_config())
-            if launches[f"{hasher}_leaves"] != full["merkle_hashing"][
-                    "leaf_launches"]:
-                raise AssertionError(
-                    f"{hasher} leaf launches {launches[f'{hasher}_leaves']}, "
-                    f"the commits' shapes need "
-                    f"{full['merkle_hashing']['leaf_launches']}")
-            report["full"][hasher] = full
-            log(f"    {hasher}: shapes {full['table_shapes']}")
-            log(f"    {hasher}: seconds {full['seconds']}, peak "
-                f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, proof "
-                f"{full['proof_bytes']} bytes sha256 {full['proof_sha256']}, "
-                f"launches {launches}")
-            missing = [k for k in kernel_names if launches[k] == 0]
-            if missing:
-                raise AssertionError(f"kernels never launched on the {hasher} "
-                                     f"path: {missing}")
-            stray = [k for k, v in launches.items()
-                     if v and k not in kernel_names]
-            if stray:
-                raise AssertionError(f"kernels of another path launched on "
-                                     f"the {hasher} path: {stray}")
-            torch.cuda.empty_cache()
-        for hasher, golden_file in FULL_GOLDENS.items():
-            report["full"][hasher]["golden"] = check_golden(
-                report["full"][hasher], golden_file)
+        report["full"] = {
+            hasher: path(f"N={FULL_N} {hasher}", full_prep, hasher,
+                         FULL_GOLDENS[hasher]) for hasher in PATH_KERNELS}
         del full_prep
+        log(f"[4] main path at N={LARGE_N} "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        large_prep = prepare(LARGE_N, workdir)
+        report["large"] = path(f"N={LARGE_N} blake3", large_prep, "blake3",
+                               None)
+        log(f"    shapes {report['large']['table_shapes']}")
+        del large_prep
 
-        # 5. the CLI on the card, in this process
-        log(f"[5] ola-torch asm, run, prove, verify at N=10 "
+        # 5. the node: deploy the sccall pair, run the caller's tx, prove its
+        # tables on the card
+        log(f"[5] node tx (manual_deploy, execute_tx, gen_tx_trace) "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        report["node"] = path("node tx blake3", prepare_node(), "blake3",
+                              NODE_GOLDEN)
+
+        # 6. the CLI on the card, in this process
+        log(f"[6] ola-torch asm, run, prove, verify at N=10 "
             f"(at {time.perf_counter() - started:.1f} s)")
         report["cli"] = cli_path(workdir)
         log(f"    proof matches cli_fib_golden.json ({report['cli']})")
@@ -836,11 +1127,13 @@ def run() -> int:
     if reference:
         raise AssertionError(f"the port imported {reference}")
 
-    # launches: the sum over the two full-size paths' runs
+    # launches: the sum over the runs of the main path (N=10 with both
+    # hashers, N=94000 with both, N=376000, the node tx)
+    runs = [*report["golden"].values(), *report["full"].values(),
+            report["large"], report["node"]]
     kernel_line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": sum(path["launches"][c] for c in counters
-                         for path in report["full"].values()),
+         "launches": sum(r["launches"][c] for c in counters for r in runs),
          **{key: report["kernels"][name][key]
             for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")}}
@@ -852,12 +1145,12 @@ def run() -> int:
     with open(os.path.join(REPORT_DIR, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    print(json.dumps({"full_size": {
-        hasher: {"N": FULL_N, "seconds": full["seconds"],
-                 "peak_memory_bytes": full["peak_memory_bytes"],
-                 "launches": full["launches"],
-                 "proof_sha256": full["proof_sha256"]}
-        for hasher, full in report["full"].items()}}))
+    print(json.dumps({"proves": {
+        r["label"]: {
+            "seconds": r["seconds"], "peak_memory_bytes": r["peak_memory_bytes"],
+            "host_peak_resident_bytes": r["host_peak_resident_bytes"],
+            "launches": r["launches"], "proof_sha256": r["proof_sha256"]}
+        for r in runs}}))
     print(json.dumps({"ns_per_permutation": {
         name: report["kernels"][name]["ms"] * 1e6 / perms
         for name, perms in report["kernels"]["permutations"].items()}}))

@@ -24,6 +24,18 @@
 // functions of 12 32-bit instructions each, the three-term adds being one
 // instruction, ~680 per 64 input bytes, above the card's operations-per-byte
 // line); device memory for a tree level (192 bytes per compression).
+//
+// blake3_absorb is the streamed form of the leaf kernel, for a commit that
+// never holds its whole LDE (olavm_tpu/merkle/device.py:106-183
+// leaf_stream_absorb, as olavm_tpu/stark/oracle_device.py:152-241 drives it):
+// it absorbs one block of at most 16 LDE columns (one or two 64-byte
+// message blocks) into the (8, n) chaining values that the previous block
+// left, taking the blocks' flags, lengths and chunk counters as arguments,
+// so that one kernel serves every block position. Given the first chunk's
+// chaining values, it also ends a two-chunk leaf with the PARENT | ROOT
+// compression. Per leaf it moves the 64 bytes of the state in and out besides
+// the block, so a 16-column block is bound by device memory (256 bytes
+// against two compressions).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -163,6 +175,56 @@ level_kernel(const uint64_t* __restrict__ digests, uint64_t* __restrict__ out,
   }
 }
 
+// The message blocks of one absorbed column block: flags, byte lengths and
+// chunk counters of its (at most two) 64-byte blocks.
+struct BlockMeta {
+  uint32_t flags[2], len[2], counter[2];
+};
+
+// block: (W, n), 1 <= W <= 16, columns of the leaves; state: (8, n)
+// chaining values, read unless `fresh` (a leaf's first chunk starts from
+// the IV), written with the result. chunk0: nullptr, or the (8, n) chaining
+// values of the leaves' first chunk when this block ends a two-chunk leaf.
+// state is read and written by the same thread, so it may not be __restrict__.
+__global__ void __launch_bounds__(THREADS)
+absorb_kernel(const uint64_t* __restrict__ block, uint64_t* state,
+              const uint64_t* __restrict__ chunk0, int64_t n, int W, int fresh,
+              BlockMeta meta) {
+  const int nblocks = (W + 7) / 8;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    uint32_t cv[8], m[16];
+    if (fresh) {
+      set_iv(cv);
+    } else {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) cv[w] = static_cast<uint32_t>(state[w * n + i]);
+    }
+    for (int b = 0; b < nblocks; ++b) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int col = 8 * b + k;
+        const uint64_t v = col < W ? block[col * n + i] : 0;
+        m[2 * k] = static_cast<uint32_t>(v);
+        m[2 * k + 1] = static_cast<uint32_t>(v >> 32);
+      }
+      compress(cv, m, meta.counter[b], meta.len[b], meta.flags[b]);
+    }
+    if (chunk0 != nullptr) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        m[w] = static_cast<uint32_t>(chunk0[w * n + i]);
+        m[8 + w] = cv[w];
+      }
+      set_iv(cv);
+      compress(cv, m, 0, 64, PARENT | ROOT);
+    }
+#pragma unroll
+    for (int w = 0; w < 8; ++w) state[w * n + i] = cv[w];
+  }
+}
+
 }  // namespace
 
 extern "C" int gl_blake3_leaves(const void* cols, void* out, int64_t n, int C,
@@ -179,5 +241,23 @@ extern "C" int gl_blake3_level(const void* digests, void* out, int64_t n,
     return static_cast<int>(cudaErrorInvalidValue);
   level_kernel<<<gl::grid_for(n >> 1, THREADS), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(digests), static_cast<uint64_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// meta: host array of the block's flags, byte lengths and chunk counters,
+// two of each (the second unused when W <= 8)
+extern "C" int gl_blake3_absorb(const void* block, void* state,
+                                const void* chunk0, int64_t n, int W, int fresh,
+                                const uint32_t* meta, void* stream) {
+  if (n < 1 || W < 1 || W > 16) return static_cast<int>(cudaErrorInvalidValue);
+  BlockMeta m;
+  for (int b = 0; b < 2; ++b) {
+    m.flags[b] = meta[b];
+    m.len[b] = meta[2 + b];
+    m.counter[b] = meta[4 + b];
+  }
+  absorb_kernel<<<gl::grid_for(n, THREADS), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(block), static_cast<uint64_t*>(state),
+      static_cast<const uint64_t*>(chunk0), n, W, fresh, m);
   return static_cast<int>(cudaGetLastError());
 }

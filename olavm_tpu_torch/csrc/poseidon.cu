@@ -24,6 +24,12 @@
 //   leaf_digests (a jnp chain of permute_gf there): one thread per leaf runs
 //   the rate-8 overwrite sponge over its C elements, ceil(C / 8)
 //   permutations with the 12 words in registers throughout;
+// - poseidon_absorb is the same kernel streamed, for a commit that never
+//   holds its whole LDE (olavm_tpu/merkle/device.py:106-183
+//   leaf_stream_absorb): it absorbs one block of at most 16 LDE columns
+//   (one or two permutations) into the (12, n) sponge states that the
+//   leaf's earlier blocks left in device memory, and writes them back, or
+//   the digests after the leaf's last block;
 // - poseidon_level replaces olavm_tpu/merkle/device.py:186 compress_digests:
 //   one thread per parent permutes [left, right, 0, 0, 0, 0].
 // Both are bound by operations, as K2 is: a leaf reads 8 bytes per absorbed
@@ -135,14 +141,19 @@ __device__ __forceinline__ void stage_chunk(uint64_t (*buf)[BLOCK],
   cp_async_commit();
 }
 
-// cols: (C, n) canonical elements, leaf t is column t; out: (8, n) words.
-// The loops are the same for every thread of a block (a thread past n
-// permutes what its buffer holds and stores nothing), as the big shape's
-// barrier needs.
+// cols: (C, n) canonical elements, leaf t is column t. Each leaf's sponge
+// starts from row t of the (12, n) states state_in, or from zero where
+// state_in is nullptr; its final state goes to state_out and its digest to
+// the (8, n) words digest_out, each where not nullptr. state_in and
+// state_out may be one array (a thread reads and writes only its own
+// leaf's column), so neither is __restrict__. The loops are the same for
+// every thread of a block (a thread past n permutes what its buffer holds
+// and stores nothing), as the big shape's barrier needs.
 template <int BLOCK>
 __global__ void __launch_bounds__(BLOCK, BIG_THREADS / BLOCK)
-leaves_kernel(const uint64_t* __restrict__ cols, uint64_t* __restrict__ out,
-              int64_t n, int C) {
+leaves_kernel(const uint64_t* __restrict__ cols, int64_t n, int C,
+              const uint64_t* state_in, uint64_t* state_out,
+              uint64_t* __restrict__ digest_out) {
   using poseidon::RATE;
   using poseidon::WIDTH;
   extern __shared__ uint64_t leaves_buf[];  // [2][RATE][BLOCK]
@@ -157,8 +168,13 @@ leaves_kernel(const uint64_t* __restrict__ cols, uint64_t* __restrict__ out,
   for (; base < n; base += stride) {
     const int64_t t = base + threadIdx.x;
     uint64_t s[WIDTH];
+    if (state_in != nullptr && t < n) {
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) s[i] = 0;
+      for (int i = 0; i < WIDTH; ++i) s[i] = state_in[i * n + t];
+    } else {
+#pragma unroll
+      for (int i = 0; i < WIDTH; ++i) s[i] = 0;
+    }
 #pragma unroll 1
     for (int c = 0; c < chunks; ++c) {
       // the next chunk: of this leaf, or the first of the next leaf
@@ -175,7 +191,13 @@ leaves_kernel(const uint64_t* __restrict__ cols, uint64_t* __restrict__ out,
       if (BLOCK == BIG_THREADS) __syncthreads();
       b ^= 1;
     }
-    if (t < n) store_digest(out, n, t, s);
+    if (t < n) {
+      if (state_out != nullptr) {
+#pragma unroll
+        for (int i = 0; i < WIDTH; ++i) state_out[i * n + t] = s[i];
+      }
+      if (digest_out != nullptr) store_digest(digest_out, n, t, s);
+    }
   }
   cp_async_wait_all();
 }
@@ -291,25 +313,48 @@ extern "C" int gl_poseidon_permute(const void* in, void* out, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cols: (C, n) canonical elements; out: (8, n) digest words. Any C >= 1: the
-// rule that a leaf of at most 4 elements is its own digest is the caller's.
-extern "C" int gl_poseidon_leaves(const void* cols, void* out, int64_t n, int C,
-                                  void* stream) {
+// the leaf kernel in the launch shape for n leaves
+static int launch_leaves(const void* cols, int64_t n, int C, const void* state_in,
+                  void* state_out, void* digest_out, void* stream) {
   if (n < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
   const auto in = static_cast<const uint64_t*>(cols);
-  const auto o = static_cast<uint64_t*>(out);
+  const auto s_in = static_cast<const uint64_t*>(state_in);
+  const auto s_out = static_cast<uint64_t*>(state_out);
+  const auto d_out = static_cast<uint64_t*>(digest_out);
   const auto st = static_cast<cudaStream_t>(stream);
   if (n >= static_cast<int64_t>(sms) * BIG_MIN_PER_SM)
     leaves_kernel<BIG_THREADS>
         <<<persistent_grid(n, BIG_THREADS, 1, sms), BIG_THREADS,
-           leaves_smem<BIG_THREADS>(), st>>>(in, o, n, C);
+           leaves_smem<BIG_THREADS>(), st>>>(in, n, C, s_in, s_out, d_out);
   else
     leaves_kernel<SMALL_THREADS>
         <<<persistent_grid(n, SMALL_THREADS, BIG_THREADS / SMALL_THREADS, sms),
-           SMALL_THREADS, leaves_smem<SMALL_THREADS>(), st>>>(in, o, n, C);
+           SMALL_THREADS, leaves_smem<SMALL_THREADS>(), st>>>(in, n, C, s_in,
+                                                                s_out, d_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cols: (C, n) canonical elements; out: (8, n) digest words. Any C >= 1: the
+// rule that a leaf of at most 4 elements is its own digest is the caller's.
+extern "C" int gl_poseidon_leaves(const void* cols, void* out, int64_t n, int C,
+                                  void* stream) {
+  return launch_leaves(cols, n, C, nullptr, nullptr, out, stream);
+}
+
+// The streamed leaf sponge (olavm_tpu/merkle/device.py:106-183
+// leaf_stream_absorb, its Poseidon half): absorb a block of W columns, (W,
+// n), into the (12, n) sponge states that the leaf's earlier blocks left
+// (state_in; nullptr for the first block, which starts from zero), in
+// chunks of 8 (only a leaf's last block may end in a shorter chunk). The
+// states go to state_out (it may be state_in) and, for a leaf's last
+// block, the digests to the (8, n) words digest_out; either may be nullptr.
+extern "C" int gl_poseidon_absorb(const void* block, const void* state_in,
+                                  void* state_out, void* digest_out, int64_t n,
+                                  int W, void* stream) {
+  if (W > 16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_leaves(block, n, W, state_in, state_out, digest_out, stream);
 }
 
 // digests: (8, n) words, n even, 16-byte aligned; out: (8, n / 2)

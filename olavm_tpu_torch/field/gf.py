@@ -5,8 +5,9 @@ uint64 values (< p); values >= 2^63 read as negative int64. The TPU package's
 (lo, hi) u32 pair exists only because the TPU has no 64-bit multiply.
 
 On a CUDA tensor, `mul`, `add` and `sub` launch the hand-written kernels of
-csrc/gf_mul.cu (K3 and its add/sub siblings). On a CPU tensor they run the
-plain versions beside them (`mul_plain`, ...), which use only int64 torch
+csrc/gf_mul.cu (K3 and its add/sub siblings), and `eval_points` (every
+polynomial at every point of a power table) launches K5, csrc/eval.cu. On
+a CPU tensor they run the plain versions beside them (`mul_plain`, ...), which use only int64 torch
 ops: torch has no add, shift or compare for uint64, so the plain versions
 work on 32-bit limbs held in int64, mask after every `>>` (it sign-extends
 on int64) and never form a product above 2^49, so nothing overflows. The
@@ -261,15 +262,15 @@ def inv(a: torch.Tensor) -> torch.Tensor:
 
 def powers(base, n: int, device) -> torch.Tensor:
     """[1, b, b^2, ..., b^{n-1}] by log-doubling (log2(n) array muls).
-    `base` is a host int or a 0-dim tensor."""
+    `base` is a host int (power_rows: each doubling's b^m computed on the
+    host) or a 0-dim tensor."""
     if not isinstance(base, torch.Tensor):
-        base = scalar(base, device)
+        return power_rows([base], n, device)[0]
     out = ones((1,), device)
     length = 1
     while length < n:
         step = min(length, n - length)
-        shift = exp_const(base, length)
-        out = torch.cat([out, mul(out[:step], shift)])
+        out = torch.cat([out, mul(out[:step], exp_const(base, length))])
         length += step
     return out[:n]
 
@@ -281,6 +282,71 @@ def sum_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         if x.shape[-1] % 2:
             x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
         x = add(x[..., 0::2], x[..., 1::2])
+    return x[..., 0]
+
+
+def power_rows(bases, n: int, device) -> torch.Tensor:
+    """(k, n) table [1, x, ..., x^{n-1}] of each host-known base x, by
+    log-doubling: the row block [0, m) times x^m gives [m, 2m)."""
+    xs = [int(x) % P for x in bases]
+    out = ones((len(xs), 1), device)
+    length = 1
+    while length < n:
+        step = min(length, n - length)
+        shift = from_u64([pow(x, length, P) for x in xs], device)[:, None]
+        out = torch.cat([out, mul(out[:, :step], shift)], dim=1)
+        length += step
+    return out[:, :n]
+
+
+# K5's limit on points per launch, and its threads per block
+EVAL_MAX_POINTS = 32
+_EVAL_THREADS = 256
+
+
+def eval_points(coeffs: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
+    """Dot products of the rows of (C, n) coefficients with the rows of (k,
+    n) power tables -> (k, C): every polynomial at every point. K5
+    (csrc/eval.cu) on CUDA tensors, the plain version on CPU tensors."""
+    (C, n), k = coeffs.shape, pows.shape[0]
+    if pows.shape[1] != n:
+        raise ValueError(f"coefficients {tuple(coeffs.shape)} against powers "
+                         f"{tuple(pows.shape)}")
+    if not _on_cuda(coeffs, pows):
+        return eval_points_plain(coeffs, pows)
+    coeffs, pows = coeffs.contiguous(), pows.contiguous()
+    kernels.require_cuda_int64(coeffs, pows)
+    out = torch.empty((k, C), dtype=torch.int64, device=coeffs.device)
+    if C == 0 or k == 0:
+        return out
+    # enough blocks for a few waves of the card, at least a block of terms
+    # per chunk
+    sms = torch.cuda.get_device_properties(coeffs.device).multi_processor_count
+    chunks = max(1, min(-(-n // _EVAL_THREADS), -(-32 * sms // C), 65535))
+    for s in range(0, k, EVAL_MAX_POINTS):
+        rows = pows[s:s + EVAL_MAX_POINTS]
+        part = torch.empty((chunks, rows.shape[0], C), dtype=torch.int64,
+                           device=coeffs.device)
+        kernels.check(kernels.lib("eval").gl_eval_points(
+            coeffs.data_ptr(), rows.data_ptr(), part.data_ptr(),
+            out[s:].data_ptr(), n, C, rows.shape[0], chunks,
+            kernels.stream_ptr(coeffs)), "eval_points")
+        kernels.LAUNCHES["eval_points"] += 1
+    return out
+
+
+def eval_points_plain(coeffs: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: per point, the product array and a pairwise sum."""
+    return torch.stack([_sum_plain(mul_plain(coeffs, row[None, :]))
+                        for row in pows])
+
+
+def _sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """sum_reduce over the last axis with the plain add."""
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
+        x = add_plain(x[..., 0::2], x[..., 1::2])
     return x[..., 0]
 
 

@@ -11,10 +11,13 @@ Three parts:
   (olavm_tpu/hash/poseidon.py:417-468) with the plain field ops;
 - the Poseidon Merkle hashing of merkle/device.py: `leaves` (the rate-8
   overwrite sponge over each leaf of a (C, n) column array) and `level` (one
-  tree level of (8, n) digest words). On a CUDA tensor each launches its
+  tree level of (8, n) digest words), and `absorb`, the leaf sponge over one
+  block of columns from the states an earlier block left (the streamed
+  commit of merkle/device.py LeafStream). On a CUDA tensor each launches its
   kernel in csrc/poseidon.cu (the sponge and the compression are in
   csrc/poseidon_merkle.cuh); on a CPU tensor each runs its plain version,
-  `leaves_plain` or `level_plain`, loops over `permute_plain`.
+  `leaves_plain`, `level_plain` or `absorb_plain`, loops over
+  `permute_plain`.
 
 The round and MDS constants are read from poseidon_constants.json beside this
 module, a copy of olavm_tpu/hash/poseidon_constants.json (required bit for
@@ -393,15 +396,23 @@ def _digest_words(d: torch.Tensor) -> torch.Tensor:
 
 def leaves_plain(cols: torch.Tensor) -> torch.Tensor:
     """Plain version of the leaf kernel: hash_no_pad of each column of (C, n)
-    canonical elements -> (8, n) digest words. A last chunk of k < 8
-    elements overwrites only words 0..k-1 of the state."""
-    C, n = cols.shape
-    state = torch.zeros((WIDTH, n), dtype=torch.int64, device=cols.device)
-    for start in range(0, C, RATE):
-        chunk = min(RATE, C - start)
-        state = permute_plain(torch.cat([cols[start:start + chunk],
+    canonical elements -> (8, n) digest words."""
+    return absorb_plain(cols, None, True)
+
+
+def absorb_plain(block: torch.Tensor, state, final: bool) -> torch.Tensor:
+    """Plain version of the absorb kernel: the rate-8 overwrite sponge over
+    the (W, n) block from the (12, n) states `state` (None: zero). A last
+    chunk of k < 8 elements overwrites only words 0..k-1 of the state.
+    Returns the states, or the (8, n) digest words if `final`."""
+    W, n = block.shape
+    if state is None:
+        state = torch.zeros((WIDTH, n), dtype=torch.int64, device=block.device)
+    for start in range(0, W, RATE):
+        chunk = min(RATE, W - start)
+        state = permute_plain(torch.cat([block[start:start + chunk],
                                          state[chunk:]]))
-    return _digest_words(state[:DIGEST])
+    return _digest_words(state[:DIGEST]) if final else state
 
 
 def leaves(cols: torch.Tensor) -> torch.Tensor:
@@ -422,6 +433,34 @@ def leaves(cols: torch.Tensor) -> torch.Tensor:
                                          kernels.stream_ptr(cols)),
                   "poseidon_leaves")
     kernels.LAUNCHES["poseidon_leaves"] += 1
+    return out
+
+
+def absorb(block: torch.Tensor, state, final: bool) -> torch.Tensor:
+    """Absorb a (W, n) block of leaf columns, 1 <= W <= 16, into the (12, n)
+    sponge states `state` (None: the leaves' first block, from zero): the
+    streamed leaf sponge. Returns the new states (in `state` itself on the
+    card), or the (8, n) digest words if `final` (the leaves' last block):
+    gl_poseidon_absorb on a CUDA tensor, the plain version on a CPU tensor."""
+    W, n = block.shape
+    if not 1 <= W <= 16:
+        raise ValueError(f"an absorbed block has 1 to 16 columns, got {W}")
+    if block.device.type != "cuda":
+        return absorb_plain(block, state, final)
+    kernels.require_cuda_int64(block, *(() if state is None else (state,)))
+    if final:
+        out = torch.empty((8, n), dtype=torch.int64, device=block.device)
+        state_out, digest_out = None, out.data_ptr()
+    else:
+        out = state if state is not None else torch.empty(
+            (WIDTH, n), dtype=torch.int64, device=block.device)
+        state_out, digest_out = out.data_ptr(), None
+    lib = _poseidon_lib(block.device)
+    kernels.check(lib.gl_poseidon_absorb(
+        block.data_ptr(), None if state is None else state.data_ptr(),
+        state_out, digest_out, n, W, kernels.stream_ptr(block)),
+        "poseidon_absorb")
+    kernels.LAUNCHES["poseidon_absorb"] += 1
     return out
 
 

@@ -26,14 +26,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("blake3", "gf_mul", "ntt", "poseidon")
+SOURCES = ("blake3", "eval", "gf_mul", "ntt", "poseidon")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
-            "blake3_leaves": 0, "blake3_level": 0, "poseidon_leaves": 0,
-            "poseidon_level": 0}
+            "blake3_leaves": 0, "blake3_level": 0, "blake3_absorb": 0,
+            "poseidon_leaves": 0, "poseidon_level": 0, "poseidon_absorb": 0,
+            "eval_points": 0}
 
 # source name -> what nvcc printed when it was last built here (ptxas -v:
 # registers, shared memory and spills of every kernel)
@@ -45,12 +46,15 @@ _lock = threading.Lock()
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_U32P = ctypes.POINTER(ctypes.c_uint32)
 # C signatures of every entry point, by library
 _SIGNATURES = {
     "blake3": {
         "gl_blake3_leaves": [_VP, _VP, _I64, _INT, _VP],
         "gl_blake3_level": [_VP, _VP, _I64, _VP],
+        "gl_blake3_absorb": [_VP, _VP, _VP, _I64, _INT, _INT, _U32P, _VP],
     },
+    "eval": {"gl_eval_points": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP]},
     "gf_mul": {
         "gl_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
         "gl_add": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
@@ -63,6 +67,7 @@ _SIGNATURES = {
         "gl_poseidon_permute": [_VP, _VP, _I64, _VP],
         "gl_poseidon_leaves": [_VP, _VP, _I64, _INT, _VP],
         "gl_poseidon_level": [_VP, _VP, _I64, _VP],
+        "gl_poseidon_absorb": [_VP, _VP, _VP, _VP, _I64, _INT, _VP],
     },
 }
 

@@ -20,9 +20,18 @@ elements are their own zero-padded digests (hash_or_noop), for both hashers.
   csrc/poseidon.cu on CUDA tensors, their plain versions on CPU tensors);
 - any other name (keccak) raises NotImplementedError: the host prover
   (stark/prover.py) runs those configurations.
+
+`LeafStream` computes the same leaf digests from blocks of at most 16
+columns given in turn, so that a commit never holds its whole LDE
+(stark/oracle_device.py): `blake3_absorb` (gl_blake3_absorb in
+csrc/blake3.cu) and hash/poseidon.py `absorb` (gl_poseidon_absorb) carry
+the per-leaf hash states from block to block, each with its plain version
+for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -35,6 +44,8 @@ M32 = 0xFFFFFFFF
 NOOP_MAX = 4
 # one blake3 chunk is 1024 bytes = 128 u64 columns
 CHUNK_COLS = 128
+# columns per streamed block: two blake3 message blocks, two Poseidon rates
+STREAM_BLOCK_COLS = 16
 HASHERS = ("blake3", "poseidon")
 
 
@@ -107,22 +118,131 @@ def leaf_digests(cols: torch.Tensor, hasher_kind: str = "blake3"
 
 def leaf_digests_plain(cols: torch.Tensor) -> torch.Tensor:
     """Plain version of the leaf kernel: 4 < C <= 256 columns, absorbed one
-    64-byte block at a time."""
-    C, n = cols.shape
-    flags, blen, counter = absorb_block_meta(C)
-    chunk_cvs = []
-    cv = b3.iv_lanes(n, cols.device)
-    for j, start in enumerate(range(0, C, 8)):
-        if start and start % CHUNK_COLS == 0:
-            chunk_cvs.append(cv)
-            cv = b3.iv_lanes(n, cols.device)
-        cv = b3.compress(cv, _words(cols[start:start + 8]), int(blen[j]),
+    64-byte block at a time, each 128-column chunk from the IV."""
+    C = cols.shape[0]
+    meta = absorb_block_meta(C)
+    cv = blake3_absorb_plain(cols[:CHUNK_COLS], None, None,
+                             *(m[:CHUNK_COLS // 8] for m in meta))
+    if C <= CHUNK_COLS:
+        return cv
+    return blake3_absorb_plain(cols[CHUNK_COLS:], None, cv,
+                               *(m[CHUNK_COLS // 8:] for m in meta))
+
+
+def blake3_absorb(block: torch.Tensor, state, chunk0, flags, blen,
+                  counter) -> torch.Tensor:
+    """Absorb a (W, n) block of leaf columns, W <= 16, into the (8, n)
+    chaining values `state` (None: a chunk's first block, from the IV), one
+    64-byte message block per 8 columns with these flags, byte lengths and
+    chunk counters; given `chunk0`, the first chunk's chaining values, end a
+    two-chunk leaf with one PARENT | ROOT compression. Returns the new
+    chaining values, in `state` itself on the card (gl_blake3_absorb), by
+    the plain version on a CPU tensor."""
+    W, n = block.shape
+    if not 1 <= W <= STREAM_BLOCK_COLS:
+        raise ValueError(f"an absorbed block has 1 to {STREAM_BLOCK_COLS} "
+                         f"columns, got {W}")
+    if block.device.type != "cuda":
+        return blake3_absorb_plain(block, state, chunk0, flags, blen, counter)
+    fresh = state is None
+    if fresh:
+        state = torch.empty((8, n), dtype=torch.int64, device=block.device)
+    kernels.require_cuda_int64(block, state,
+                               *(() if chunk0 is None else (chunk0,)))
+    nb = (W + 7) // 8
+    meta = (ctypes.c_uint32 * 6)()
+    for b in range(nb):
+        meta[b], meta[2 + b], meta[4 + b] = int(flags[b]), int(blen[b]), \
+            int(counter[b])
+    rc = kernels.lib("blake3").gl_blake3_absorb(
+        block.data_ptr(), state.data_ptr(),
+        None if chunk0 is None else chunk0.data_ptr(), n, W, int(fresh), meta,
+        kernels.stream_ptr(block))
+    kernels.check(rc, "blake3_absorb")
+    kernels.LAUNCHES["blake3_absorb"] += 1
+    return state
+
+
+def blake3_absorb_plain(block: torch.Tensor, state, chunk0, flags, blen,
+                        counter) -> torch.Tensor:
+    """Plain version of the absorb kernel (any number of columns, one
+    message block per 8 of them)."""
+    n = block.shape[1]
+    cv = b3.iv_lanes(n, block.device) if state is None else state
+    for j, start in enumerate(range(0, block.shape[0], 8)):
+        cv = b3.compress(cv, _words(block[start:start + 8]), int(blen[j]),
                          int(flags[j]), int(counter[j]))
-    if not chunk_cvs:
+    if chunk0 is None:
         return cv
     # two chunks: parent = compress(IV, cv0 || cv1, 64, PARENT | ROOT)
-    return b3.compress(b3.iv_lanes(n, cols.device),
-                       torch.cat([chunk_cvs[0], cv]), 64, b3.PARENT | b3.ROOT)
+    return b3.compress(b3.iv_lanes(n, block.device), torch.cat([chunk0, cv]),
+                       64, b3.PARENT | b3.ROOT)
+
+
+class LeafStream:
+    """The digests of n leaves of C > 4 columns, absorbed a block of
+    columns at a time, so that the (C, n) leaf matrix (a commit's LDE) never
+    exists whole: the counterpart of olavm_tpu/merkle/device.py:106-183
+    (leaf_stream_init, absorb_block_meta, leaf_stream_absorb,
+    leaf_stream_finalize) with the chunk tree of
+    olavm_tpu/stark/oracle_device.py:198-240.
+
+    Blocks come in column order, each of at most 16 columns, starting on an
+    8-column boundary (one blake3 message block, one Poseidon rate); only
+    the last may hold a number of columns that is not a multiple of 8.
+    blake3 keeps (8, n) chaining values; at column 128 a second chunk starts
+    from the IV, the first chunk's values are kept, and the last block joins
+    the two. Poseidon keeps the (12, n) sponge states. The digests are equal
+    to `leaf_digests` of the whole matrix."""
+
+    def __init__(self, C: int, n: int, hasher_kind: str = "blake3"):
+        check_hasher(hasher_kind)
+        if C <= NOOP_MAX:
+            raise ValueError(f"leaves of {C} <= {NOOP_MAX} columns are their "
+                             f"own digests: use leaf_digests")
+        if hasher_kind == "blake3" and C > 2 * CHUNK_COLS:
+            raise ValueError(f"leaves over {2 * CHUNK_COLS} columns not "
+                             f"supported")
+        self.C, self.n, self.hasher_kind = C, n, hasher_kind
+        self.pos = 0
+        self.state = None
+        self.chunk0 = None
+        self.digests = None
+        if hasher_kind == "blake3":
+            self.meta = absorb_block_meta(C)
+
+    def absorb(self, block: torch.Tensor) -> None:
+        """Absorb the next (W, n) block of columns."""
+        W = block.shape[0]
+        start, end = self.pos, self.pos + W
+        if block.shape[1] != self.n or end > self.C or W > STREAM_BLOCK_COLS:
+            raise ValueError(f"block {tuple(block.shape)} at column {start} "
+                             f"of ({self.C}, {self.n}) leaves")
+        if end < self.C and W % 8:
+            raise ValueError("only the last block may end off an 8-column "
+                             "boundary")
+        last = end == self.C
+        if self.hasher_kind == "poseidon":
+            out = pos.absorb(block, self.state, last)
+            self.state, self.digests = (None, out) if last else (out, None)
+        else:
+            if start // CHUNK_COLS != (end - 1) // CHUNK_COLS:
+                raise ValueError("a block may not cross a blake3 chunk")
+            if start and start % CHUNK_COLS == 0:
+                self.chunk0, self.state = self.state, None
+            j, nb = start // 8, (W + 7) // 8
+            self.state = blake3_absorb(
+                block, self.state, self.chunk0 if last else None,
+                *(m[j:j + nb] for m in self.meta))
+            if last:
+                self.digests, self.state, self.chunk0 = self.state, None, None
+        self.pos = end
+
+    def finalize(self) -> torch.Tensor:
+        """The (8, n) digest words, once every column is absorbed."""
+        if self.pos != self.C:
+            raise ValueError(f"{self.pos} of {self.C} columns absorbed")
+        return self.digests
 
 
 def compress_level(digests: torch.Tensor, hasher_kind: str = "blake3"

@@ -15,11 +15,10 @@ plain field ops.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..field import goldilocks as g
-from ..utils.bits import bit_reversal_perm, log2_strict
+from ..utils.bits import log2_strict
 
 from .. import kernels
 from ..field import gf
@@ -137,9 +136,15 @@ def coset_lde(coeffs: torch.Tensor, rate_bits: int,
 
 
 def bitrev_perm(n: int, device) -> torch.Tensor:
-    """Index tensor r with r[i] = reverse_bits(i, log2(n)), cached."""
+    """Index tensor r with r[i] = reverse_bits(i, log2(n)), built on the
+    device (utils.bits.bit_reversal_perm's loop, which takes seconds on the
+    host at 2^23 and more) and cached."""
     key = (str(device), n)
     if key not in _PERMS:
-        _PERMS[key] = torch.from_numpy(
-            np.ascontiguousarray(bit_reversal_perm(n))).to(device)
+        x = torch.arange(n, dtype=torch.int64, device=device)
+        out = torch.zeros_like(x)
+        for _ in range(log2_strict(n)):
+            out = (out << 1) | (x & 1)
+            x >>= 1
+        _PERMS[key] = out
     return _PERMS[key]

@@ -1,12 +1,17 @@
 """Device polynomial commitment; counterpart of olavm_tpu/stark/oracle_device.py
 (the reference PolynomialBatch, plonky2/plonky2/src/fri/oracle.rs:30-164).
 
-The TPU package streams the LDE through column blocks because a 16 GB chip
-cannot hold it. An 80 GB card can: the largest table of the 2^20-row run
-needs 94 x 2^23 x 8 B = 6.3 GB. So a batch keeps its coefficients, its LDE
-(natural order) and its digest levels resident, and FRI query leaves are
-gathers from the LDE (the same field elements the TPU package recomputes by
-direct evaluation).
+A batch keeps only its coefficients and its Merkle digest levels on the
+card; the x8 LDE is streamed, as in the TPU package. One card holds the LDE
+of a 2^20-row proof (the largest table's is 94 x 2^23 x 8 B = 6.3 GB), but
+not of a 2^22-row one: the trace LDEs alone are ~42.6 GB there, and the
+proof must also hold its trees, its Z and quotient batches and the
+quotient's transients. So `from_coeffs` runs one coset LDE (K1) per block of
+16 columns and absorbs it into running per-leaf hash states
+(merkle/device.py LeafStream), at most one block of LDE values existing at a
+time; the quotient and the FRI read the coefficients (stark/prover_device.py);
+FRI query leaves are recomputed by direct evaluation at the queried coset
+points (K5, gf.eval_points: the same field elements the LDE would hold).
 
 Merkle leaves are the LDE columns in bit-reversed order (leaf digests are
 computed in natural order, then permuted), matching the host tree and the
@@ -19,15 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.bits import log2_strict
+from ..field import goldilocks as g
+from ..utils.bits import log2_strict, reverse_bits
 
 from ..field import gf
 from ..field import gfe
 from ..merkle import device as dmerkle
 from ..ntt import ntt as dntt
 
-# columns per coset-LDE pass: bounds the transient memory of a wide table
-_BLOCK_COLS = 16
 
 
 def build_tree_device(leaf_digs: torch.Tensor, cap_height: int,
@@ -59,16 +63,16 @@ def gather_paths_dev(levels, x_indices, num_path_levels: int) -> torch.Tensor:
 
 
 class DevicePolynomialBatch:
-    """Commitment with device-resident coefficients, LDE and digest tree.
+    """Commitment with device-resident coefficients and digest tree (the LDE
+    is streamed, never kept).
 
-    coeffs: (C, n) in natural order; lde: (C, n << rate_bits) values on the
-    coset g * H' in natural order; Merkle leaves are the LDE columns in
-    bit-reversed order."""
+    coeffs: (C, n) in natural order; the Merkle leaves are the columns of
+    the LDE on the coset g * H' (|H'| = n << rate_bits) in bit-reversed
+    order."""
 
-    def __init__(self, coeffs: torch.Tensor, lde: torch.Tensor, levels,
-                 cap: np.ndarray, rate_bits: int):
+    def __init__(self, coeffs: torch.Tensor, levels, cap: np.ndarray,
+                 rate_bits: int):
         self.coeffs = coeffs
-        self.lde = lde
         self.levels = levels
         self.cap = cap
         self.degree_log = log2_strict(coeffs.shape[1])
@@ -86,14 +90,21 @@ class DevicePolynomialBatch:
         dmerkle.check_hasher(hasher_kind)
         C, n = coeffs.shape
         size = n << rate_bits
-        lde = torch.empty((C, size), dtype=torch.int64, device=coeffs.device)
-        for s in range(0, C, _BLOCK_COLS):
-            lde[s:s + _BLOCK_COLS] = dntt.coset_lde(
-                coeffs[s:s + _BLOCK_COLS], rate_bits)
-        digs = dmerkle.leaf_digests(lde, hasher_kind)
+        if C <= dmerkle.NOOP_MAX:
+            # leaves of <= 4 elements are their own digests: the LDE values
+            digs = dmerkle.leaf_digests(dntt.coset_lde(coeffs, rate_bits),
+                                        hasher_kind)
+        else:
+            # one coset LDE per block of columns, absorbed: the transient
+            # is one block (16 x 2^25 x 8 B = 4.3 GB at 2^22 rows)
+            stream = dmerkle.LeafStream(C, size, hasher_kind)
+            block = dmerkle.STREAM_BLOCK_COLS
+            for s in range(0, C, block):
+                stream.absorb(dntt.coset_lde(coeffs[s:s + block], rate_bits))
+            digs = stream.finalize()
         digs = digs[:, dntt.bitrev_perm(size, coeffs.device)]
         levels, cap = build_tree_device(digs, cap_height, hasher_kind)
-        return DevicePolynomialBatch(coeffs, lde, levels, cap, rate_bits)
+        return DevicePolynomialBatch(coeffs, levels, cap, rate_bits)
 
     @property
     def num_polys(self) -> int:
@@ -105,26 +116,49 @@ class DevicePolynomialBatch:
 
     def free(self):
         """Release the device buffers once the table's proof is done."""
-        self.coeffs = self.lde = self.levels = None
+        self.coeffs = self.levels = None
 
-    def eval_at_ext(self, zeta_pows: gfe.GFE) -> np.ndarray:
+    def eval_at_ext(self, pows: gfe.GFE) -> np.ndarray:
         """Every polynomial at the extension point whose (n,) power table is
         given -> host (C, 2) u64."""
-        c = self.coeffs
-        re = gf.sum_reduce(gf.mul(c, zeta_pows.re[None, :]), -1)
-        im = gf.sum_reduce(gf.mul(c, zeta_pows.im[None, :]), -1)
-        return gfe.to_u64_pair(gfe.GFE(re, im))
+        return self.eval_at_ext_rows(torch.stack([pows.re, pows.im]))[0]
 
-    def query_leaves_dev(self, x_indices) -> torch.Tensor:
-        """Leaf values for bit-reversed leaf indices -> device (k, C)."""
-        perm = dntt.bitrev_perm(1 << self.lde_bits, self.lde.device)
-        idx = torch.as_tensor(np.asarray(x_indices, dtype=np.int64),
-                              device=self.lde.device)
-        return self.lde[:, perm[idx]].T
+    def eval_at_ext_rows(self, rows: torch.Tensor) -> list[np.ndarray]:
+        """Every polynomial at several extension points at once (K5): rows
+        (2m, n) holds the re and im rows of m power tables -> m host (C, 2)
+        u64 arrays (a base polynomial at an extension point is two base dot
+        products)."""
+        out = gf.to_u64(gf.eval_points(self.coeffs, rows))
+        return [np.ascontiguousarray(out[2 * i:2 * i + 2].T)
+                for i in range(rows.shape[0] // 2)]
 
-    def query_leaves(self, x_indices) -> np.ndarray:
+    def query_points(self, x_indices) -> list[int]:
+        """Coset points g * w^j behind bit-reversed leaf indices x, j the
+        reversal of x's bits (olavm_tpu/stark/oracle_device.py:513-520, which
+        reads j from the whole permutation: seconds at 2^23 leaves)."""
+        bits = self.lde_bits
+        w = g.primitive_root_of_unity(bits)
+        return [g.mul(g.MULTIPLICATIVE_GROUP_GENERATOR,
+                      pow(w, reverse_bits(int(x), bits), g.P))
+                for x in x_indices]
+
+    def query_powers(self, x_indices) -> torch.Tensor:
+        """(k, n) power tables of the query points (shared by every batch of
+        a table: the same points, the same degree)."""
+        return gf.power_rows(self.query_points(x_indices),
+                             self.coeffs.shape[1], self.coeffs.device)
+
+    def query_leaves_dev(self, x_indices, pows=None) -> torch.Tensor:
+        """Leaf values for bit-reversed leaf indices -> device (k, C), by
+        direct evaluation at the coset points (K5); `pows` is
+        query_powers(x_indices) if already made."""
+        if pows is None:
+            pows = self.query_powers(x_indices)
+        return gf.eval_points(self.coeffs, pows)
+
+    def query_leaves(self, x_indices, pows=None) -> np.ndarray:
         """(k, C) host u64 leaf values."""
-        return gf.to_u64(self.query_leaves_dev(x_indices))
+        return gf.to_u64(self.query_leaves_dev(x_indices, pows))
 
     def prove_batch(self, x_indices) -> list[list[list[int]]]:
         """Merkle paths for a batch of leaf indices: [k][level][4]."""

@@ -5,18 +5,22 @@ Same transcript as the host prover (circuits/src/stark/prover.rs): the
 Fiat-Shamir challenger and proof objects stay on the host, every O(n) step
 runs on the given torch device.
 
-  commit    = iNTT -> coset LDE -> blake3 or Poseidon leaves -> Merkle
-              levels (oracle_device; LDEs stay resident)
+  commit    = iNTT -> per 16-column block: coset LDE -> absorb into the
+              blake3 or Poseidon leaf states -> Merkle levels (oracle_device;
+              only the coefficients and the tree stay resident)
   Z polys   = log-depth grand products (ctl_device)
   quotient  = each table's own eval_packed, run through TorchOps over each
-              residue class of the quotient coset in one pass
-  openings  = power-table inner products at zeta and g*zeta
-  FRI       = values-first composition poly, fold, re-FFT, extension-leaf
-              trees, the Poseidon PoW grind (K2), query gathers
+              residue class of the quotient coset in one pass, the class's
+              values one coset FFT of the coefficients
+  openings  = power-table inner products at zeta and g*zeta (K5)
+  FRI       = composition poly formed on the coefficients, one coset LDE,
+              fold, re-FFT, extension-leaf trees, the Poseidon PoW grind
+              (K2), query leaves evaluated at their points (K5)
 
-On a CUDA device the products launch K3, the transforms K1 and the grind K2;
-the Merkle hashing launches the blake3 kernels (K4) or the Poseidon leaf and
-level kernels, as config.merkle_hasher says.
+On a CUDA device the products launch K3, the transforms K1, the grind K2
+and the evaluations K5; the Merkle hashing launches the blake3 kernels (K4
+and its absorb) or the Poseidon leaf, absorb and level kernels, as
+config.merkle_hasher says.
 """
 
 from __future__ import annotations
@@ -67,6 +71,9 @@ from .prover import fri_instance_for_stark
 
 logger = logging.getLogger(__name__)
 
+# polynomials of one oracle combined by one product in the FRI composition
+_COMBINE_ROWS = 16
+
 
 # ---------------------------------------------------------------------------
 # quotient
@@ -81,22 +88,22 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
 
     The quotient coset g*W (|W| = n << qdb) splits into 2^qdb residue
     classes j = k * 2^qdb + r; class r is the coset (g * w^r) * H, its
-    values are a strided slice of the resident LDE, and the "next row" of a
-    point stays inside its class as a roll by one. Each class runs the
+    values one coset FFT of the coefficients on n points (the values at
+    p(g w^r w_n^k) that the strided slice lde[:, r * step :: 2^rate] of the
+    LDE holds), and the "next row" of a point stays inside its class as a
+    roll by one. Each class runs the
     table's constraints (eval_packed, permutation checks, CTL checks, in the
     host prover's order) in one pass. Returns the (num_alphas * qdf, n)
     quotient chunks' coefficients."""
-    device = trace_batch.lde.device
+    device = trace_batch.coeffs.device
     F = TorchOps(device)
     degree = 1 << degree_bits
     qdf = stark.quotient_degree_factor()
     qdb = qdf.bit_length() - 1
     if (1 << qdb) < qdf:
         qdb += 1
-    rate_bits = config.fri_config.rate_bits
-    assert qdb <= rate_bits
+    assert qdb <= config.fri_config.rate_bits
     size = degree << qdb
-    step = 1 << (rate_bits - qdb)
 
     w = g.primitive_root_of_unity(degree_bits + qdb)
     gen = g.primitive_root_of_unity(degree_bits)
@@ -120,9 +127,8 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
         lagrange_last = gf.mul(gf.scalar(g.mul(c_n, g_last), device),
                                gf.inv(z_last))
 
-        cols = slice(r * step, None, 1 << rate_bits)
-        local = trace_batch.lde[:, cols].contiguous()
-        zs_local = zs_batch.lde[:, cols].contiguous()
+        local = dntt.coset_fft(trace_batch.coeffs, shift)
+        zs_local = dntt.coset_fft(zs_batch.coeffs, shift)
         lv, nv = list(local), list(local.roll(-1, 1))
         zl, zn = list(zs_local), list(zs_local.roll(-1, 1))
 
@@ -161,27 +167,39 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
 
 
 def _ext_power_table(z, n: int, device) -> gfe.GFE:
-    """Device [1, z, ..., z^{n-1}] for a host extension point z."""
-    return gfe.powers(gfe.from_u64_pair(np.asarray(z, dtype=np.uint64), device),
-                      n)
+    """Device [1, z, ..., z^{n-1}] for a host extension point z, by
+    log-doubling: the block [0, m) times z^m, computed on the host, gives
+    [m, 2m) (gfe.powers would square a 0-dim tensor on the card, ~2,000
+    launches at n = 2^20)."""
+    out = gfe.ones((1,), device)
+    zm = ge.t(z)  # z^length
+    length = 1
+    while length < n:
+        step = min(length, n - length)
+        nxt = gfe.mul(out[:step], _ext_scalar(zm, device))
+        out = gfe.GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
+        zm = ge.t_mul(zm, zm)
+        length += step
+    return out[:n]
 
 
 def _openings_device(trace_batch, zs_batch, quotient_batch,
                      z_values: torch.Tensor, zeta, gen: int,
                      num_permutation_zs: int) -> StarkOpeningSet:
     """StarkOpeningSet::new (proof.rs:199-233): every polynomial at zeta and
-    g*zeta, plus the last CTL Z values (base values at g^{n-1})."""
-    device = trace_batch.lde.device
+    g*zeta (one K5 launch per batch for both points), plus the last CTL Z
+    values (base values at g^{n-1})."""
+    device = trace_batch.coeffs.device
     degree = trace_batch.coeffs.shape[1]
     pows = _ext_power_table(zeta, degree, device)
     pows_n = _ext_power_table(ge.scalar_mul(zeta, gen), degree, device)
+    both = torch.stack([pows.re, pows.im, pows_n.re, pows_n.im])
+    trace_z, trace_gz = trace_batch.eval_at_ext_rows(both)
+    zs_z, zs_gz = zs_batch.eval_at_ext_rows(both)
     nq = quotient_batch.coeffs.shape[1]
     qpows = pows if nq == degree else _ext_power_table(zeta, nq, device)
     return StarkOpeningSet(
-        trace_batch.eval_at_ext(pows),
-        trace_batch.eval_at_ext(pows_n),
-        zs_batch.eval_at_ext(pows),
-        zs_batch.eval_at_ext(pows_n),
+        trace_z, trace_gz, zs_z, zs_gz,
         gf.to_u64(z_values[num_permutation_zs:, -1]),
         quotient_batch.eval_at_ext(qpows),
     )
@@ -261,10 +279,13 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
     """PolynomialBatch::prove_openings + fri_proof (fri/oracle.rs:167-243,
     fri/prover.rs:20-150), values first: over the LDE coset,
     F(x) = x * sum_b alpha^{suffix_b} (C_b(x) - y_b) / (x - z_b), with
-    C_b = sum_i alpha^i p_i over the batch's resident LDE rows and
-    y_b = C_b(z_b) the alpha-reduction of the opened values. One coset iNTT
-    gives the coefficients to fold."""
-    device = oracles[0].lde.device
+    C_b = sum_i alpha^i p_i and y_b = C_b(z_b) the alpha-reduction of the
+    opened values. C_b is formed on the coefficients (every oracle's
+    polynomials have n of them) and takes one coset LDE of its re and im
+    parts: by linearity the values the sum over LDE rows would give, at 1/8
+    of the arithmetic and with no LDE kept. One coset iNTT gives the
+    coefficients to fold."""
+    device = oracles[0].coeffs.device
     fri_config = config.fri_config
     rate_bits = fri_config.rate_bits
     alpha = ge.t(challenger.get_extension_challenge())
@@ -277,13 +298,9 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
 
     final = gfe.zeros((n,), device)
     for batch, y in zip(instance.batches, reduced):
-        comp = gfe.zeros((n,), device)
-        pw = (1, 0)
-        for oi, pi in batch.polynomials:
-            term = gfe.mul_base(_ext_scalar(pw, device), oracles[oi].lde[pi])
-            comp = gfe.add(comp, term)
-            pw = ge.t_mul(pw, alpha)
-        num = gfe.sub(comp, _ext_scalar(y, device))
+        comp, pw = _combine_coeffs(batch.polynomials, oracles, alpha, device)
+        v = dntt.coset_lde(torch.stack([comp.re, comp.im]), rate_bits)
+        num = gfe.sub(gfe.GFE(v[0], v[1]), _ext_scalar(y, device))
         den = gfe.sub(gfe.from_base(xs), _ext_scalar(batch.point, device))
         q = gfe.mul(num, gfe.inv(den))
         # pw is now alpha^{len(batch)}: shift the earlier batches past it
@@ -295,6 +312,41 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
     coeffs = gfe.GFE(c[0], c[1])
     return fri_proof_device(oracles, coeffs, values, challenger, fri_config,
                             degree_bits, config.merkle_hasher)
+
+
+def _combine_coeffs(polynomials, oracles, alpha, device):
+    """sum_i alpha^i p_i over a FRI batch's polynomials (oracle, index), on
+    their coefficients -> ((n,) GFE, alpha^len). A run of consecutive
+    polynomials of one oracle, at most 16 at a time, is one product with
+    the column of its alpha powers and a pairwise sum (modular addition is
+    exact, so the order of the terms does not change the result)."""
+    runs = []  # (oracle, first index, host alpha powers)
+    pw = (1, 0)
+    for oi, pi in polynomials:
+        if (runs and runs[-1][0] == oi and runs[-1][1] + len(runs[-1][2]) == pi
+                and len(runs[-1][2]) < _COMBINE_ROWS):
+            runs[-1][2].append(pw)
+        else:
+            runs.append((oi, pi, [pw]))
+        pw = ge.t_mul(pw, alpha)
+    comp = None
+    for oi, p0, pws in runs:
+        rows = oracles[oi].coeffs[p0:p0 + len(pws)]
+        cols = gf.from_u64(np.asarray(pws, dtype=np.uint64).T.copy(), device)
+        term = gfe.GFE(_sum_rows(gf.mul(rows, cols[0][:, None])),
+                       _sum_rows(gf.mul(rows, cols[1][:, None])))
+        comp = term if comp is None else gfe.add(comp, term)
+    return comp, pw
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Modular sum of the rows of (m, n) -> (n,), halving the rows (each
+    half a contiguous slice)."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        s = gf.add(x[:h], x[h:2 * h])
+        x = torch.cat([s, x[2 * h:]]) if x.shape[0] % 2 else s
+    return x[0]
 
 
 def fri_fold(coeffs: gfe.GFE, beta, arity: int) -> gfe.GFE:
@@ -348,7 +400,11 @@ def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
         c % lde_n for c in challenger.get_n_challenges(config.num_query_rounds)
     ]
     k = len(query_indices)
-    leaves = [o.query_leaves(query_indices) for o in initial_oracles]
+    # every initial oracle has n coefficients and the same LDE: one power
+    # table of the query points serves them all
+    pows = initial_oracles[0].query_powers(query_indices)
+    leaves = [o.query_leaves(query_indices, pows) for o in initial_oracles]
+    del pows
     paths = [o.prove_batch(query_indices) for o in initial_oracles]
     steps_eval, steps_path = [], []
     xi = np.asarray(query_indices, dtype=np.int64)

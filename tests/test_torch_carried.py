@@ -3,7 +3,8 @@ ntt/host, stark, isa, assembler, tables, native, runtime}) against their
 originals in olavm_tpu, on the CPU, from numpy seeds. Everything is exact
 integer or field arithmetic, so the tolerance is 0. The copies that are
 whole modules (stark/oracle, stark/prover, runtime/trace_io,
-utils/trace_analyzer) must also equal their originals line for line below
+utils/trace_analyzer, node/olavm, state/node_state, state/store) must also
+equal their originals line for line below
 the docstring's "Carried from" note."""
 
 import json
@@ -261,7 +262,8 @@ def test_table_copy_evaluates_like_original(module):
 
 
 WHOLE_COPIES = ["stark/oracle.py", "stark/prover.py", "runtime/trace_io.py",
-                "utils/trace_analyzer.py"]
+                "utils/trace_analyzer.py", "node/olavm.py",
+                "state/node_state.py", "state/store.py"]
 
 
 @pytest.mark.parametrize("path", WHOLE_COPIES)

@@ -1,6 +1,8 @@
 """The hand-written kernels (olavm_tpu_torch/csrc) on the card: each against
-its plain PyTorch version on the same CUDA tensors, bit-exact, and the
-ToySystem proof through the kernels equal to olavm_tpu's host proof.
+its plain PyTorch version on the same CUDA tensors, bit-exact (the streamed
+absorb kernels also against the one-shot leaf kernels, and the streamed
+commit against the same commit on the CPU), and the ToySystem proof through
+the kernels equal to olavm_tpu's host proof.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -253,8 +255,10 @@ def test_toy_proof_through_kernels_equals_host(dev):
     port = prove_with_traces_device(ToySystem(), tconfig.StarkConfig(), traces,
                                     device=dev)
     assert tser(port) == serialize_all_proof(host)
+    # ToySystem's commits have at most 4 columns (leaves that are their own
+    # digests), so the streamed absorb runs only in the wider tests below
     blake3 = {k: v for k, v in kernels.LAUNCHES.items()
-              if not k.startswith("poseidon_")}
+              if not k.startswith("poseidon_") and k != "blake3_absorb"}
     assert all(v > 0 for v in blake3.values()), kernels.LAUNCHES
 
 
@@ -279,3 +283,90 @@ def test_toy_poseidon_proof_through_kernels_equals_host(dev):
     assert kernels.LAUNCHES["poseidon_leaves"] > 0
     assert kernels.LAUNCHES["poseidon_level"] > 0
     assert kernels.LAUNCHES["blake3_leaves"] == kernels.LAUNCHES["blake3_level"] == 0
+
+
+def _stream(cols, hasher, block=16):
+    stream = tmerkle.LeafStream(cols.shape[0], cols.shape[1], hasher)
+    for start in range(0, cols.shape[0], block):
+        stream.absorb(cols[start:start + block].contiguous())
+    return stream.finalize()
+
+
+@pytest.mark.parametrize("C", [5, 8, 9, 16, 17, 29, 94, 128, 129, 134, 256])
+def test_blake3_absorb_kernel_matches_plain(dev, C):
+    cols = convert.from_u64(_rand((C, 1000), C), dev)
+    before = kernels.LAUNCHES["blake3_absorb"]
+    got = _stream(cols, "blake3")
+    assert kernels.LAUNCHES["blake3_absorb"] == before + (C + 15) // 16
+    assert torch.equal(got, _stream(cols.cpu(), "blake3").to(dev))
+    assert torch.equal(got, tmerkle.leaf_digests(cols))
+    assert torch.equal(_stream(cols, "blake3", 8), got)
+
+
+@pytest.mark.parametrize("C", [5, 8, 9, 16, 17, 94, 134])
+@pytest.mark.parametrize("big", [False, True])
+def test_poseidon_absorb_kernel_matches_plain(dev, C, big):
+    n = _big_path_n(dev) if big else 1000
+    cols = torch.randint(0, 1 << 62, (C, n), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(C))
+    cols[:, 0] = int(np.uint64(g.P - 1).view(np.int64))
+    before = kernels.LAUNCHES["poseidon_absorb"]
+    got = _stream(cols, "poseidon")
+    assert kernels.LAUNCHES["poseidon_absorb"] == before + (C + 15) // 16
+    assert torch.equal(got, tpos.leaves(cols))
+    part = cols[:, :4096].contiguous()
+    assert torch.equal(got[:, :4096], _stream(part.cpu(), "poseidon").to(dev))
+    # one block's states against the plain sponge's
+    state = tpos.absorb(cols[:8].contiguous(), None, False)
+    assert torch.equal(state[:, :4096],
+                       tpos.absorb_plain(part[:8], None, False))
+
+
+@pytest.mark.parametrize("C,n,k", [(1, 1, 1), (3, 17, 5), (94, 4096, 28),
+                                   (5, 1 << 14, 4), (2, 300, 40),
+                                   (134, 1024, 28)])
+def test_eval_points_kernel_matches_plain(dev, C, n, k):
+    coeffs = convert.from_u64(_rand((C, n), n), dev)
+    points = [int(v) for v in _rand(k, k)]
+    points[0] = g.P - 1
+    pows = gf.power_rows(points, n, dev)
+    before = kernels.LAUNCHES["eval_points"]
+    got = gf.eval_points(coeffs, pows)
+    assert kernels.LAUNCHES["eval_points"] == before + (k + 31) // 32
+    assert torch.equal(got, gf.eval_points_plain(coeffs, pows))
+
+
+def test_eval_points_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.ones((2, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        gf.eval_points(x, x)
+    with pytest.raises(ValueError):
+        gf.eval_points(torch.ones((2, 8), dtype=torch.int64, device=dev),
+                       torch.ones((2, 4), dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("hasher,C", [("blake3", 17), ("blake3", 134),
+                                      ("poseidon", 17), ("poseidon", 3)])
+def test_streamed_commit_on_card_equals_cpu(dev, hasher, C):
+    from olavm_tpu_torch.field import gfe
+    from olavm_tpu_torch.stark.oracle_device import DevicePolynomialBatch
+
+    vals = _rand((C, 1 << 10), C)
+    batches = [DevicePolynomialBatch.from_values(convert.from_u64(vals, d), 3,
+                                                 4, hasher)
+               for d in (dev, torch.device("cpu"))]
+    on_card, on_cpu = batches
+    np.testing.assert_array_equal(on_card.cap, on_cpu.cap)
+    idx = [0, 3, 4095, 8191]
+    np.testing.assert_array_equal(on_card.query_leaves(idx),
+                                  on_cpu.query_leaves(idx))
+    assert on_card.prove_batch(idx) == on_cpu.prove_batch(idx)
+    z = [(5, 7), (g.P - 1, 3)]
+    pows = [gfe.powers(gfe.from_u64_pair(np.asarray(p, dtype=np.uint64), d),
+                       1 << 10) for d in (dev, "cpu") for p in z]
+    rows = [torch.stack([pows[2 * i].re, pows[2 * i].im,
+                         pows[2 * i + 1].re, pows[2 * i + 1].im])
+            for i in range(2)]
+    for a, b in zip(on_card.eval_at_ext_rows(rows[0]),
+                    on_cpu.eval_at_ext_rows(rows[1])):
+        np.testing.assert_array_equal(a, b)

@@ -12,14 +12,18 @@ the CPU.
   `prove -b host` (chip_smoke.cli_stages);
 - tests/fixtures/fib_loop_golden_full.json and
   fib_loop_golden_full_poseidon.json: the first two at the full size,
-  N=94000 (2^20 CPU rows; chip_smoke.FULL_N).
+  N=94000 (2^20 CPU rows; chip_smoke.FULL_N);
+- tests/fixtures/node_sccall_golden.json: the node path: olavm_tpu's OlaVM
+  deploys the sccall fixture pair (sccall_caller_asm.json,
+  sccall_callee_asm.json), runs the caller's tx, and its host prover proves
+  the tx's tables (chip_smoke.node_tx), blake3 caps.
 
 chip_smoke.py proves the same programs with the port on the card and
 compares against them. The slow tests recompute each golden with
 olavm_tpu; running this file as a script (`python tests/test_torch_golden.py`)
-rewrites the three at N=10, and with `--full blake3` or `--full poseidon`
-one of the full-size goldens (tens of minutes and tens of GiB of host
-memory each: run it alone). It prints each golden's seconds and the
+rewrites the three at N=10, with `--node` the node golden (minutes), and
+with `--full blake3` or `--full poseidon` one of the full-size goldens (tens
+of minutes and tens of GiB of host memory each: run it alone). It prints each golden's seconds and the
 process's peak resident memory.
 """
 
@@ -36,6 +40,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = os.path.join(FIXTURES, "fib_loop_golden.json")
 GOLDEN_POSEIDON = os.path.join(FIXTURES, "fib_loop_golden_poseidon.json")
 GOLDEN_CLI = os.path.join(FIXTURES, "cli_fib_golden.json")
+GOLDEN_NODE = os.path.join(FIXTURES, "node_sccall_golden.json")
 GOLDEN_FULL = {
     "blake3": os.path.join(FIXTURES, "fib_loop_golden_full.json"),
     "poseidon": os.path.join(FIXTURES, "fib_loop_golden_full_poseidon.json"),
@@ -98,10 +103,32 @@ def full_golden_record(merkle_hasher: str) -> dict:
     return golden_record(FULL_N, merkle_hasher)
 
 
+def node_golden_record() -> dict:
+    from chip_smoke import NODE_CALLEE, NODE_CALLER, node_tx
+    from olavm_tpu.stark.config import StarkConfig
+    from olavm_tpu.stark.prover import prove_with_traces
+    from olavm_tpu.stark.serialization import serialize_all_proof
+
+    _, trace, traces, pv, ola = node_tx("olavm_tpu")
+    proof = prove_with_traces(ola, StarkConfig.standard_fast_config(), traces,
+                              public_values=pv)
+    data = serialize_all_proof(proof)
+    return {"contracts": [{"program": name, "address": list(addr)}
+                          for name, addr in (NODE_CALLER, NODE_CALLEE)],
+            "steps": len(trace.exec), "sccall_rows": len(trace.sc_call),
+            "table_shapes": [list(t.shape) for t in traces],
+            "public_values": {
+                "pre_root": [int(x) for x in pv.pre_state_root],
+                "post_root": [int(x) for x in pv.post_state_root]},
+            "proof_sha256": hashlib.sha256(data).hexdigest(),
+            "proof_bytes": len(data)}
+
+
 RECORDS = {
     GOLDEN: golden_record,
     GOLDEN_POSEIDON: lambda: golden_record(merkle_hasher="poseidon"),
     GOLDEN_CLI: cli_golden_record,
+    GOLDEN_NODE: node_golden_record,
     **{path: functools.partial(full_golden_record, hasher)
        for hasher, path in GOLDEN_FULL.items()},
 }
@@ -122,14 +149,16 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--full", choices=sorted(GOLDEN_FULL),
                         help="rewrite this hasher's full-size golden only")
+    parser.add_argument("--node", action="store_true",
+                        help="rewrite the node golden only")
     args = parser.parse_args()
     # the repository root, for chip_smoke
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    paths = [GOLDEN_FULL[args.full]] if args.full else [GOLDEN, GOLDEN_POSEIDON,
-                                                          GOLDEN_CLI]
+    paths = ([GOLDEN_FULL[args.full]] if args.full else [GOLDEN_NODE]
+             if args.node else [GOLDEN, GOLDEN_POSEIDON, GOLDEN_CLI])
     for path in paths:
         t0 = time.perf_counter()
         result = RECORDS[path]()

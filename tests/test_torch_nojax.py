@@ -43,7 +43,8 @@ result["modules"] = len(names)
 result["entry_points"] = sorted(set(names) & {
     "olavm_tpu_torch.cli.main", "olavm_tpu_torch.runtime.trace_io",
     "olavm_tpu_torch.stark.oracle", "olavm_tpu_torch.stark.prover",
-    "olavm_tpu_torch.utils.trace_analyzer"})
+    "olavm_tpu_torch.utils.trace_analyzer", "olavm_tpu_torch.node.olavm",
+    "olavm_tpu_torch.state.node_state", "olavm_tpu_torch.state.store"})
 """
 
 REFERENCE_NATIVE = """
@@ -73,6 +74,12 @@ with tempfile.TemporaryDirectory() as d:
         write_fib_program(10, d), calldata=None)
 traces = generate_traces_fast(fast_run, program, OlaStark(), process)
 result["shapes"] = [list(t.shape) for t in traces]
+"""
+
+NODE_TX = """
+from chip_smoke import node_tx
+node, trace, traces, pv, ola = node_tx()
+result["node"] = [len(trace.sc_call), len(traces)]
 """
 
 TOY_PROVE = """
@@ -157,11 +164,13 @@ def _run(*parts: str) -> dict:
 
 
 def test_port_imports_and_runs_with_jax_refused():
-    res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, TOY_PROVE)
+    res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, NODE_TX,
+               TOY_PROVE)
     assert res["modules"] >= 83
-    # the host prover and the CLI's modules, among them
-    assert len(res["entry_points"]) == 5
+    # the host prover, the CLI's and the node's modules, among them
+    assert len(res["entry_points"]) == 8
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
+    assert res["node"] == [1, 12]
     assert res["verified"]
     assert res["jax_loaded"] == [] and res["reference_loaded"] == []
 
