@@ -18,7 +18,10 @@ time over its permutations (ceil(C / 8) per leaf, one per parent). For
 `absorb`, "ms" holds gl_blake3_absorb and gl_poseidon_absorb on one (W, n)
 block of LDE columns with the states an earlier block left ("blake3
 16x2^23"), and "ns_per_permutation" the Poseidon ones; for `eval`, K5 on (C,
-n) coefficients at k points ("94x2^20 at 28"). The whole disassembly of each
+n) coefficients at k points ("94x2^20 at 28"; every shape of an N=94000
+prove and a few more), "device_ms" the same calls' kernel time from
+torch.profiler (below ~0.05 ms a call, CUDA events time the host that
+issues it), and "ms_per_column" at (C, 2^20) x 28 for C = 1, 8 and 94. The whole disassembly of each
 built library goes to chip_smoke_out/<source>.sass.
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
@@ -50,10 +53,10 @@ SHAPES = {
     # absorbed blocks (W, n): the streamed commit's 16 columns at the
     # 2^20- and 2^22-row CpuStark LDEs, and a last block of 8
     "absorb": ((16, 1 << 23), (16, 1 << 25), (8, 1 << 23)),
-    # (C, n, k): the FRI query leaves of the CpuStark trace at 2^20 and 2^22
-    # rows, the openings' 4 rows, the widest table's query leaves
-    "eval": ((94, 1 << 20, 28), (94, 1 << 22, 28), (94, 1 << 20, 4),
-             (134, 1024, 28)),
+    # (C, n, k) besides every shape of an N=94000 prove (chip_smoke.K5_SHAPES):
+    # the FRI query leaves of the CpuStark trace at 2^22 rows, and C = 1 and
+    # 8 columns at 2^20 x 28 for the time per column
+    "eval": ((94, 1 << 22, 28), (1, 1 << 20, 28), (8, 1 << 20, 28)),
 }
 # the csrc sources that hold each choice's kernels
 LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
@@ -271,19 +274,44 @@ def time_absorb(gen, cuda_ms) -> dict:
 
 
 def time_eval(gen, cuda_ms) -> dict:
-    """K5 on (C, n) coefficients at k points of SHAPES["eval"]."""
+    """K5 on (C, n) coefficients at k points: every shape of an N=94000
+    prove and those of SHAPES["eval"]; its time per column at (C, 2^20) x
+    28."""
     import torch
 
+    import chip_smoke
     from olavm_tpu_torch.field import gf
 
-    ms = {}
-    for C, n, k in SHAPES["eval"]:
+    ms, device_ms = {}, {}
+    for C, n, k in sorted({*chip_smoke.K5_SHAPES, *SHAPES["eval"]}):
         coeffs = torch.randint(0, 1 << 62, (C, n), generator=gen, device="cuda")
         pows = torch.randint(0, 1 << 62, (k, n), generator=gen, device="cuda")
-        ms[f"{C}x{_log2(n)} at {k}"] = cuda_ms(
-            lambda: gf.eval_points(coeffs, pows), 10)
+        key = f"{C}x{_log2(n)} at {k}"
+        ms[key] = cuda_ms(lambda: gf.eval_points(coeffs, pows),
+                          10 if C * n >= 1 << 22 else 200)
+        device_ms[key] = _device_ms(lambda: gf.eval_points(coeffs, pows), 10)
         del coeffs, pows
-    return {"ms": ms}
+    return {"ms": ms, "device_ms": device_ms, "ms_per_column": {
+        C: ms[f"{C}x2^20 at 28"] / C for C in (1, 8, 94)}}
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of the kernels `fn` launches, from
+    torch.profiler: at shapes where a call takes less than the host needs
+    to issue it, CUDA events around back-to-back calls time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0.0)
+                   for e in prof.key_averages())
+    return total_us / 1e3 / reps
 
 
 if __name__ == "__main__":

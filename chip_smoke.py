@@ -14,7 +14,9 @@ without printing a result:
    same work (`bound_ms`, from the shapes of this run): K1 at every log n
    from 1 to 26, the absorb kernels of the streamed commit at every leaf
    width class (a streamed leaf hash also against the one-shot leaf kernel,
-   at (94, 2^23) too), K5 at (94, 2^20) x 28 points;
+   at (94, 2^23) too), K5 at every edge of its launch plan and at every
+   shape of an N=94000 prove (K5_SHAPES), timed at (94, 2^20) x 28 and x 4
+   points;
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card with blake3 and then with Poseidon Merkle caps (one trace
    generation) must serialize to the sha256 and length of the goldens that
@@ -667,32 +669,45 @@ def check_stream_kernels(device, rng) -> dict:
         results[name]["plain_shape"] = plain_shape
         torch.cuda.empty_cache()
 
-    # K5: the FRI query leaves of the CpuStark trace batch, (94, 2^20) x 28
-    # points, and small shapes (one term, a partial chunk, more than 32
-    # points, the openings' 4 rows)
+    # K5 at every edge of its plan (register tile, sub-tile, point groups,
+    # chunks) and at every shape the N=94000 prove gives it, bit-exact; timed
+    # at the FRI query leaves of the CpuStark trace batch, (94, 2^20) x 28,
+    # and at its openings, x 4
+    chunk = gf.eval_plan_on(device, 94, 1 << 20, 28).chunk_len
+    edges = [(C, n_terms, k)
+             for C in sorted({1, gf.EVAL_RC - 1, gf.EVAL_RC, gf.EVAL_RC + 1,
+                              134})
+             for k in (1, 2, 3, 4, 5, 28, 32, 33, 40)
+             for n_terms in (1, 2, 17, gf.EVAL_TERMS - 1, gf.EVAL_TERMS + 1,
+                             chunk - 1, chunk + 1)]
     err = 0
-    for C, n_terms, k in ((1, 1, 1), (3, 17, 5), (134, 1024, 28),
-                          (5, 1 << 14, 4), (2, 300, 40)):
-        coeffs = rand((C, n_terms))
-        pows = gf.power_rows([int(v) for v in rng.integers(
-            0, gf.P, k, dtype=np.uint64)], n_terms, device)
+    for C, n_terms, k in edges + list(K5_SHAPES):
+        coeffs, pows = rand((C, n_terms)), rand((k, n_terms))
         err = max(err, max_abs_err(gf.eval_points(coeffs, pows),
                                    gf.eval_points_plain(coeffs, pows)))
-    C, n_terms, k = 94, 1 << 20, 28
-    coeffs = rand((C, n_terms))
-    points = [int(v) for v in rng.integers(0, gf.P, k, dtype=np.uint64)]
-    points[0] = gf.P - 1
-    pows = gf.power_rows(points, n_terms, device)
-    err = max(err, max_abs_err(gf.eval_points(coeffs, pows),
-                               gf.eval_points_plain(coeffs, pows)))
-    ms = cuda_ms(lambda: gf.eval_points(coeffs, pows), 10)
-    plain_ms = cuda_ms(lambda: gf.eval_points_plain(coeffs, pows), 1)
-    terms = k * C * n_terms
-    record("eval_points", err, ms, plain_ms,
-           bound(8 * (C + k) * n_terms + 8 * k * C,
-                 k * C * ops_dot(n_terms), MUL_PRODUCT * terms),
-           "(1,1)x1 (3,17)x5 (134,1024)x28 (5,2^14)x4 (2,300)x40; "
-           "(94,2^20)x28 with times")
+    timed = {}
+    for k in (28, 4):
+        C, n_terms = 94, 1 << 20
+        coeffs, pows = rand((C, n_terms)), rand((k, n_terms))
+        err = max(err, max_abs_err(gf.eval_points(coeffs, pows),
+                                   gf.eval_points_plain(coeffs, pows)))
+        terms = k * C * n_terms
+        timed[k] = {
+            "ms": cuda_ms(lambda: gf.eval_points(coeffs, pows), 10),
+            "plain_ms": cuda_ms(lambda: gf.eval_points_plain(coeffs, pows), 1),
+            "least": bound(8 * (C + k) * n_terms + 8 * k * C,
+                           k * C * ops_dot(n_terms), MUL_PRODUCT * terms)}
+    record("eval_points", err, timed[28]["ms"], timed[28]["plain_ms"],
+           timed[28]["least"],
+           f"{len(edges)} edge shapes, {len(K5_SHAPES)} main-path shapes; "
+           f"(94,2^20)x28 and x4 with times")
+    results["eval_points"]["at_4_points"] = {
+        "ms": timed[4]["ms"], "plain_ms": timed[4]["plain_ms"],
+        **timed[4]["least"]}
+    log(f"  eval_points (94,2^20)x4: kernel {timed[4]['ms']:.4f} ms, plain "
+        f"{timed[4]['plain_ms']:.4f} ms, bound "
+        f"{timed[4]['least']['bound_ms']:.4f} ms by "
+        f"{timed[4]['least']['bound_by']}")
     del coeffs, pows
     torch.cuda.synchronize()
     return results
@@ -953,6 +968,17 @@ PATH_KERNELS = {
 }
 # 2^22 CPU rows: 4,136,005 steps
 LARGE_N = 376000
+# K5's shapes in an N=94000 prove: per table (n, (trace, Z, quotient
+# widths)), each batch at the 28 FRI query points, the trace and Z batches
+# at the openings' 4 extension rows, the quotient batch at 2: (C, n, k)
+K5_TABLES = (
+    (1 << 20, (94, 78, 12)), (1 << 18, (29, 8, 14)), (1 << 18, (59, 10, 4)),
+    (1 << 17, (6, 4, 4)), (1 << 19, (12, 12, 4)), (1024, (134, 6, 12)),
+    (2, (53, 28, 4)), (256, (48, 12, 6)), (2, (6, 2, 8)), (2, (26, 4, 2)),
+    (1 << 21, (18, 6, 4)), (4, (40, 20, 6)))
+K5_SHAPES = tuple(sorted({(C, n, k) for n, widths in K5_TABLES
+                          for C, ks in zip(widths, ((28, 4), (28, 4), (28, 2)))
+                          for k in ks}))
 # the goldens of each path: olavm_tpu's host prover on the same program
 # (tests/test_torch_golden.py), at N=10 and at FULL_N
 GOLDENS = {

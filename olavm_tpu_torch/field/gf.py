@@ -17,6 +17,10 @@ against.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -299,15 +303,79 @@ def power_rows(bases, n: int, device) -> torch.Tensor:
     return out[:, :n]
 
 
-# K5's limit on points per launch, and its threads per block
+# K5's register tile and staging (csrc/eval_tile.cuh, held equal by
+# tests/test_torch_eval.py): RC columns x RT points per thread, sub-tiles
+# of TERMS terms in rows of STRIDE words, STAGES deep, at most MAX_THREADS
+# threads and 32 points per block
+EVAL_RC, EVAL_RT = 2, 4
+EVAL_TERMS, EVAL_STRIDE, EVAL_STAGES = 64, 66, 2
+EVAL_MAX_THREADS = 512
 EVAL_MAX_POINTS = 32
-_EVAL_THREADS = 256
+
+
+@dataclass(frozen=True)
+class EvalPlan:
+    """One launch of K5: blocks of `cols` columns x `points` points x
+    `chunk_len` terms on a grid of (chunks, column groups, point groups),
+    (cols / RC) * (points / RT) * slices threads each."""
+    cols: int
+    points: int
+    slices: int
+    chunk_len: int
+    grid: tuple
+    threads: int
+    smem_bytes: int
+
+
+def eval_plan(C: int, n: int, k: int, sms: int, resident) -> EvalPlan:
+    """K5's launch for (C, n) coefficients at k points on a card of `sms`
+    SMs: the fewest column and point groups whose tiles fit a block (more
+    column groups where n has fewer sub-tiles than the card has SMs), term
+    slices while a block has threads to spare (k <= 4), and chunks of whole
+    sub-tiles, as many as one wave holds: `resident(threads, smem_bytes)`
+    blocks on every SM (the card's occupancy of K5, `_eval_resident`)."""
+    subtiles = -(-n // EVAL_TERMS)
+    tp = -(-k // (-(-k // EVAL_MAX_POINTS) * EVAL_RT))
+    col_tiles = -(-C // EVAL_RC)
+    groups = max(-(-col_tiles * tp // EVAL_MAX_THREADS),
+                 min(col_tiles, -(-sms // subtiles)))
+    tc = -(-col_tiles // groups)
+    slices = 1
+    while (2 * slices <= min(32, EVAL_TERMS // 2)
+           and 2 * slices * tc * tp <= EVAL_MAX_THREADS):
+        slices *= 2
+    cols, points, threads = tc * EVAL_RC, tp * EVAL_RT, tc * tp * slices
+    # the row table (rounded to 16 bytes) and the staged sub-tiles
+    smem = 8 * ((cols + points + 1) // 2 * 2
+                + EVAL_STAGES * (cols + points) * EVAL_STRIDE)
+    col_groups, point_groups = -(-C // cols), -(-k // points)
+    blocks = max(1, resident(threads, smem) * sms // (col_groups * point_groups))
+    chunk_len = -(-subtiles // min(blocks, subtiles)) * EVAL_TERMS
+    return EvalPlan(cols, points, slices, chunk_len,
+                    (-(-n // chunk_len), col_groups, point_groups), threads,
+                    smem)
+
+
+@functools.lru_cache(maxsize=None)
+def eval_plan_on(device, C: int, n: int, k: int) -> EvalPlan:
+    """eval_plan for the card `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return eval_plan(C, n, k, sms, _eval_resident)
+
+
+def _eval_resident(threads: int, smem_bytes: int) -> int:
+    """Blocks of K5 of this size that one SM of the card holds at once."""
+    blocks = ctypes.c_int()
+    kernels.check(kernels.lib("eval").gl_eval_occupancy(
+        threads, smem_bytes, ctypes.byref(blocks)), "eval_points occupancy")
+    return blocks.value
 
 
 def eval_points(coeffs: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
     """Dot products of the rows of (C, n) coefficients with the rows of (k,
     n) power tables -> (k, C): every polynomial at every point. K5
-    (csrc/eval.cu) on CUDA tensors, the plain version on CPU tensors."""
+    (csrc/eval.cu, one launch for any k) on CUDA tensors, the plain version
+    on CPU tensors."""
     (C, n), k = coeffs.shape, pows.shape[0]
     if pows.shape[1] != n:
         raise ValueError(f"coefficients {tuple(coeffs.shape)} against powers "
@@ -319,19 +387,15 @@ def eval_points(coeffs: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, C), dtype=torch.int64, device=coeffs.device)
     if C == 0 or k == 0:
         return out
-    # enough blocks for a few waves of the card, at least a block of terms
-    # per chunk
-    sms = torch.cuda.get_device_properties(coeffs.device).multi_processor_count
-    chunks = max(1, min(-(-n // _EVAL_THREADS), -(-32 * sms // C), 65535))
-    for s in range(0, k, EVAL_MAX_POINTS):
-        rows = pows[s:s + EVAL_MAX_POINTS]
-        part = torch.empty((chunks, rows.shape[0], C), dtype=torch.int64,
-                           device=coeffs.device)
-        kernels.check(kernels.lib("eval").gl_eval_points(
-            coeffs.data_ptr(), rows.data_ptr(), part.data_ptr(),
-            out[s:].data_ptr(), n, C, rows.shape[0], chunks,
-            kernels.stream_ptr(coeffs)), "eval_points")
-        kernels.LAUNCHES["eval_points"] += 1
+    plan = eval_plan_on(coeffs.device, C, n, k)
+    # the chunks' partial sums (one chunk writes `out` itself)
+    part = out if plan.grid[0] == 1 else torch.empty(
+        (plan.grid[0], k, C), dtype=torch.int64, device=coeffs.device)
+    kernels.check(kernels.lib("eval").gl_eval_points(
+        coeffs.data_ptr(), pows.data_ptr(), part.data_ptr(), out.data_ptr(),
+        n, C, k, plan.cols, plan.points, plan.slices, plan.chunk_len,
+        kernels.stream_ptr(coeffs)), "eval_points")
+    kernels.LAUNCHES["eval_points"] += 1
     return out
 
 

@@ -54,7 +54,9 @@ _SIGNATURES = {
         "gl_blake3_level": [_VP, _VP, _I64, _VP],
         "gl_blake3_absorb": [_VP, _VP, _VP, _I64, _INT, _INT, _U32P, _VP],
     },
-    "eval": {"gl_eval_points": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP]},
+    "eval": {"gl_eval_points": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT,
+                                _INT, _INT, _I64, _VP],
+             "gl_eval_occupancy": [_INT, _I64, ctypes.POINTER(_INT)]},
     "gf_mul": {
         "gl_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
         "gl_add": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],

@@ -322,9 +322,22 @@ def test_poseidon_absorb_kernel_matches_plain(dev, C, big):
                        tpos.absorb_plain(part[:8], None, False))
 
 
+# K5's shapes in an N=94000 prove (2^20 CPU rows): per table (C, n) the
+# trace, Z and quotient batches at the 28 FRI query points, the trace and Z
+# batches at the openings' 4 extension rows, the quotient batch at 2
+K5_TABLES = (
+    (1 << 20, (94, 78, 12)), (1 << 18, (29, 8, 14)), (1 << 18, (59, 10, 4)),
+    (1 << 17, (6, 4, 4)), (1 << 19, (12, 12, 4)), (1024, (134, 6, 12)),
+    (2, (53, 28, 4)), (256, (48, 12, 6)), (2, (6, 2, 8)), (2, (26, 4, 2)),
+    (1 << 21, (18, 6, 4)), (4, (40, 20, 6)))
+K5_MAIN = sorted({(C, n, k) for n, widths in K5_TABLES
+                  for C, ks in zip(widths, ((28, 4), (28, 4), (28, 2)))
+                  for k in ks})
+
+
 @pytest.mark.parametrize("C,n,k", [(1, 1, 1), (3, 17, 5), (94, 4096, 28),
                                    (5, 1 << 14, 4), (2, 300, 40),
-                                   (134, 1024, 28)])
+                                   (134, 1024, 28), *K5_MAIN])
 def test_eval_points_kernel_matches_plain(dev, C, n, k):
     coeffs = convert.from_u64(_rand((C, n), n), dev)
     points = [int(v) for v in _rand(k, k)]
@@ -332,8 +345,24 @@ def test_eval_points_kernel_matches_plain(dev, C, n, k):
     pows = gf.power_rows(points, n, dev)
     before = kernels.LAUNCHES["eval_points"]
     got = gf.eval_points(coeffs, pows)
-    assert kernels.LAUNCHES["eval_points"] == before + (k + 31) // 32
+    assert kernels.LAUNCHES["eval_points"] == before + 1
     assert torch.equal(got, gf.eval_points_plain(coeffs, pows))
+
+
+@pytest.mark.parametrize("C", sorted({1, gf.EVAL_RC - 1, gf.EVAL_RC,
+                                      gf.EVAL_RC + 1, 134}))
+def test_eval_points_kernel_at_plan_edges(dev, C):
+    # every k at every edge of the sub-tile and of the chunks the plan gives
+    # this card at the main path's largest shape
+    chunk = gf.eval_plan_on(dev, 94, 1 << 20, 28).chunk_len
+    for k in (1, 2, 3, 4, 5, 28, 32, 33, 40):
+        for n in (1, 2, 17, gf.EVAL_TERMS - 1, gf.EVAL_TERMS + 1, chunk - 1,
+                  chunk + 1):
+            coeffs = convert.from_u64(_rand((C, n), C * n + k), dev)
+            pows = convert.from_u64(_rand((k, n), k * n + C), dev)
+            coeffs[:, 0] = pows[:, 0] = int(np.uint64(g.P - 1).view(np.int64))
+            assert torch.equal(gf.eval_points(coeffs, pows),
+                               gf.eval_points_plain(coeffs, pows)), (k, n)
 
 
 def test_eval_points_kernel_refuses_what_it_does_not_take(dev):
