@@ -39,16 +39,27 @@ without printing a result:
    default backend, the card) and verify at N=10, in this process through
    olavm_tpu_torch.cli.main.main; the proof must equal
    tests/fixtures/cli_fib_golden.json, which olavm_tpu's `ola` CLI wrote
-   with its host prover.
+   with its host prover;
+7. the sharded prover (olavm_tpu_torch/parallel/sharded.py), one process
+   per rank spawned by run_ranks with the kernels of phase 1: two ranks on
+   cuda:0 over gloo prove phase 4's N=94000 traces with blake3 caps and
+   phase 3's N=10 traces with Poseidon caps, one rank over NCCL proves
+   N=10 with blake3 caps; every rank's proof must equal the golden of its
+   single-device path, and in the group of two every sharded phase (the
+   column-sharded iNTT, the commit, the quotient's classes, the FRI fold
+   and trees) must have run on every rank.
 
-Every prove of phases 3-5 is one run of the main path: each kernel's launch
-count is reset just before it and read just after it; the run must have
-launched its hasher's kernels (K1, K2, K3, add, sub, K5 and the hasher's
-leaf, absorb and level kernels), none of the other hasher's, and its leaf
-and absorb kernels as often as its commits' shapes need. Each records prove
-and verify seconds, peak device memory and the host's peak resident memory.
+Every prove of phases 3-5, and every rank's prove of phase 7, is one run of
+the main path: each kernel's launch count is reset just before it and read
+just after it (in the rank's own process); the run must have launched its
+hasher's kernels (K1, K2, K3, add, sub, K5 and the hasher's leaf, absorb and
+level kernels), none of the other hasher's, and its leaf and absorb kernels
+as often as its commits' shapes need. Each records prove and verify seconds
+(a group verifies on rank 0), peak device memory and the host's peak
+resident memory.
 
-At the end neither jax nor any module of olavm_tpu may have been loaded. The
+At the end neither jax nor any module of olavm_tpu may have been loaded, in
+this process or in any rank. The
 last lines are every prove's seconds, peak memory, launch counts and
 sha256, the nanoseconds per permutation of K2 and of the Poseidon leaf and
 level kernels at their largest shapes, the `kernels` JSON line (launches
@@ -746,13 +757,14 @@ def time_plain_steps(device, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def prepare(n: int, workdir: str):
+def prepare(n: int, workdir: str, trace_dir: str | None = None):
     """Execute the fib-loop fixture at N=n and generate its traces. Returns
     (prove, report, ola): prove(device, timing=None, merkle_hasher="blake3")
     runs prove_with_traces_device on those traces with
     standard_fast_config and that Merkle hasher, ends with a synchronize and
     returns (proof, seconds, config); report holds the sizes and the seconds
-    so far."""
+    so far. Given `trace_dir`, the traces are also written there
+    (save_traces), for the sharded ranks of phase 7."""
     import torch
 
     from olavm_tpu_torch.runtime.harness import run_program_fast
@@ -793,7 +805,44 @@ def prepare(n: int, workdir: str):
                           "post_root": [int(x) for x in post]},
         "seconds": seconds,
     }
+    if trace_dir is not None:
+        save_traces(trace_dir, traces, report, ola)
     return prove, report, ola
+
+
+def save_traces(trace_dir: str, traces, report: dict, ola) -> None:
+    """The 12 tables as table{i}.npy, and the prepared report (sizes, public
+    values) with the tables' compress challenges, which trace generation
+    set on `ola`, as report.json in `trace_dir`: a rank of phase 7 reads
+    them from there (load_traces), since spawn would pickle them to every
+    rank (the CPU table alone is 790 MB at N=94000)."""
+    import numpy as np
+
+    os.makedirs(trace_dir, exist_ok=True)
+    for i, t in enumerate(traces):
+        np.save(os.path.join(trace_dir, f"table{i}.npy"), t)
+    with open(os.path.join(trace_dir, "report.json"), "w") as f:
+        json.dump({**{k: v for k, v in report.items() if k != "seconds"},
+                   "compress_challenges": ola.compress_challenges()}, f)
+
+
+def load_traces(trace_dir: str):
+    """save_traces' (traces, public values, OlaStark with the traces'
+    compress challenges, report)."""
+    import numpy as np
+
+    from olavm_tpu_torch.stark.proof import PublicValues
+    from olavm_tpu_torch.tables.ola_stark import OlaStark
+
+    with open(os.path.join(trace_dir, "report.json")) as f:
+        report = json.load(f)
+    traces = [np.load(os.path.join(trace_dir, f"table{i}.npy"))
+              for i in range(len(report["table_shapes"]))]
+    pv = report["public_values"]
+    ola = OlaStark()
+    ola.set_compress_challenges(report.pop("compress_challenges"))
+    return traces, PublicValues(tuple(pv["pre_root"]), tuple(pv["post_root"]),
+                                0), ola, report
 
 
 def prepare_node():
@@ -908,6 +957,33 @@ def merkle_hash_counts(ola, table_shapes, config) -> dict:
     return counts
 
 
+def check_path_launches(launches: dict, hasher: str, ola, table_shapes
+                        ) -> dict:
+    """A prove's launch counts: its hasher's kernels launched (its leaf and
+    absorb kernels as often as its commits' shapes need) and none of the
+    other hasher's. Returns merkle_hash_counts."""
+    from olavm_tpu_torch.stark.config import StarkConfig
+
+    counts = merkle_hash_counts(ola, table_shapes,
+                                StarkConfig.standard_fast_config())
+    for kind, key in (("leaves", "leaf_launches"),
+                      ("absorb", "absorb_launches")):
+        if launches[f"{hasher}_{kind}"] != counts[key]:
+            raise AssertionError(
+                f"{hasher} {kind} launches {launches[f'{hasher}_{kind}']}, "
+                f"the commits' shapes need {counts[key]}")
+    missing = [k for k in PATH_KERNELS[hasher] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {hasher} "
+                             f"path: {missing}")
+    stray = [k for k, v in launches.items()
+             if v and k not in PATH_KERNELS[hasher]]
+    if stray:
+        raise AssertionError(f"kernels of another path launched on the "
+                             f"{hasher} path: {stray}")
+    return counts
+
+
 def check_golden(report: dict, golden_file: str) -> dict:
     """The proof's public values, sha256 and length against a golden of
     olavm_tpu's, and its N, steps, sccall rows and table shapes where the
@@ -993,6 +1069,126 @@ FULL_GOLDENS = {
 NODE_GOLDEN = "node_sccall_golden.json"
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sharded prover
+# ---------------------------------------------------------------------------
+
+# the counters of olavm_tpu_torch.parallel.sharded.PHASES, each of which must
+# count on every rank of a group of two
+SHARDED_PHASES = ("intt", "commit", "quotient", "fold", "tree")
+# (ranks, backend, jobs (label, traces, Merkle hasher, golden)) of each
+# group, all ranks on cuda:0: NCCL refuses two ranks on one card, so the
+# group of two runs over gloo, and NCCL runs one rank
+SHARDED_GROUPS = (
+    (2, "gloo", ((f"N={FULL_N} blake3", "full", "blake3",
+                  FULL_GOLDENS["blake3"]),
+                 ("N=10 poseidon", "small", "poseidon",
+                  GOLDENS["poseidon"]))),
+    (1, "nccl", (("N=10 blake3", "small", "blake3", GOLDENS["blake3"]),)),
+)
+
+
+def sharded_rank(workdir: str, backend: str, jobs) -> list[dict]:
+    """One rank of a phase-7 group: each job's traces (save_traces, under
+    `workdir`) proved by prove_with_traces_sharded on this rank's card, with
+    every launch count and sharded-phase counter set to 0 just before the
+    prove and read just after; rank 0 also verifies."""
+    import torch
+    import torch.distributed as dist
+
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.parallel import sharded as psh
+    from olavm_tpu_torch.stark.config import MeshConfig, StarkConfig
+    from olavm_tpu_torch.stark.serialization import serialize_all_proof
+    from olavm_tpu_torch.stark.verifier import verify_proof
+    from olavm_tpu_torch.utils.timing import TimingTree
+
+    mesh = psh.make_mesh(device_type="cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    reports = []
+    for label, trace_name, hasher, _ in jobs:
+        traces, public_values, ola, prepared = load_traces(
+            os.path.join(workdir, trace_name))
+        config = StarkConfig.standard_fast_config()
+        config.merkle_hasher = hasher
+        config.mesh = MeshConfig(backend=backend, device_type="cuda")
+        # every rank starts its clock together (rank 0 verified the last job)
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        psh.reset_phases()
+        timing = TimingTree()
+        t0 = time.perf_counter()
+        proof = psh.prove_with_traces_sharded(
+            ola, config, traces, public_values=public_values, timing=timing,
+            mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = {"prove": time.perf_counter() - t0}
+        launches, phases = dict(kernels.LAUNCHES), dict(psh.PHASES)
+        peak = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            t0 = time.perf_counter()
+            verify_proof(ola, proof, config)
+            seconds["verify"] = time.perf_counter() - t0
+        data = serialize_all_proof(proof)
+        reports.append({
+            **prepared, "label": f"{label} rank {rank} of {world}",
+            "rank": rank, "world": world, "backend": dist.get_backend(),
+            "card": torch.cuda.current_device(), "merkle_hasher": hasher,
+            "seconds": seconds, "peak_memory_bytes": int(peak),
+            "host_peak_resident_bytes": host_peak_resident(),
+            "launches": launches, "sharded_phases": phases,
+            "proof_bytes": len(data),
+            "proof_sha256": hashlib.sha256(data).hexdigest(),
+            "prove_scopes": [[d, name, s] for d, name, s in timing.records]})
+        del proof, traces
+        torch.cuda.empty_cache()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "olavm_tpu"))
+    for r in reports:
+        r["reference_modules"] = loaded
+    return reports
+
+
+def sharded_path(workdir: str, started: float) -> list[dict]:
+    """Phase 7: each of SHARDED_GROUPS spawned on the card (run_ranks, the
+    kernels already built); every rank's proof must equal its golden, launch
+    its hasher's kernels and, in a group of two, run every sharded phase,
+    with neither jax nor olavm_tpu loaded. Returns every rank's report."""
+    from olavm_tpu_torch.parallel import sharded as psh
+    from olavm_tpu_torch.tables.ola_stark import OlaStark
+
+    ola = OlaStark()
+    reports = []
+    for world, backend, jobs in SHARDED_GROUPS:
+        log(f"[7] {world} rank(s) on cuda:0, backend {backend}: "
+            f"{[job[0] for job in jobs]} "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        ranks = psh.run_ranks(sharded_rank, world, backend, "cuda", workdir,
+                              backend, jobs)
+        for j, (_, _, hasher, golden_file) in enumerate(jobs):
+            for rep in (r[j] for r in ranks):
+                if rep["backend"] != backend or rep["reference_modules"]:
+                    raise AssertionError(
+                        f"{rep['label']}: backend {rep['backend']}, loaded "
+                        f"{rep['reference_modules']}")
+                rep["merkle_hashing"] = check_path_launches(
+                    rep["launches"], hasher, ola, rep["table_shapes"])
+                idle = [k for k in SHARDED_PHASES
+                        if rep["sharded_phases"][k] == 0]
+                if world > 1 and idle:
+                    raise AssertionError(f"{rep['label']}: sharded phases "
+                                         f"that never ran: {idle}")
+                rep["golden"] = check_golden(rep, golden_file)
+                log(f"    {rep['label']}: seconds {rep['seconds']}, peak "
+                    f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB on the "
+                    f"card, sha256 {rep['proof_sha256']}, sharded phases "
+                    f"{rep['sharded_phases']}, launches {rep['launches']}")
+                reports.append(rep)
+    return reports
+
+
 KERNELS = (
     # name, route, source, replaces, launch counters
     ("ntt", "cuda", "olavm_tpu_torch/csrc/ntt.cu",
@@ -1032,7 +1228,6 @@ def run() -> int:
     jax_before = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
 
     from olavm_tpu_torch import kernels
-    from olavm_tpu_torch.stark.config import StarkConfig
 
     device = torch.device("cuda", 0)
     report = {}
@@ -1076,23 +1271,8 @@ def run() -> int:
         rep["label"] = label
         launches = rep["launches"] = dict(kernels.LAUNCHES)
         rep["host_peak_resident_bytes"] = host_peak_resident()
-        counts = rep["merkle_hashing"] = merkle_hash_counts(
-            prepared[2], rep["table_shapes"], StarkConfig.standard_fast_config())
-        for kind, key in (("leaves", "leaf_launches"),
-                          ("absorb", "absorb_launches")):
-            if launches[f"{hasher}_{kind}"] != counts[key]:
-                raise AssertionError(
-                    f"{hasher} {kind} launches {launches[f'{hasher}_{kind}']}, "
-                    f"the commits' shapes need {counts[key]}")
-        missing = [k for k in PATH_KERNELS[hasher] if launches[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the {hasher} "
-                                 f"path: {missing}")
-        stray = [k for k, v in launches.items()
-                 if v and k not in PATH_KERNELS[hasher]]
-        if stray:
-            raise AssertionError(f"kernels of another path launched on the "
-                                 f"{hasher} path: {stray}")
+        rep["merkle_hashing"] = check_path_launches(
+            launches, hasher, prepared[2], rep["table_shapes"])
         if golden_file:
             rep["golden"] = check_golden(rep, golden_file)
         log(f"    {label}: seconds {rep['seconds']}, peak "
@@ -1106,7 +1286,7 @@ def run() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         # 3. parity with the JAX package's goldens, both Merkle hashers on
         # the same traces
-        small = prepare(10, workdir)
+        small = prepare(10, workdir, os.path.join(workdir, "small"))
         report["golden"] = {}
         for hasher, golden_file in GOLDENS.items():
             log(f"[3] golden parity at N=10, {hasher} Merkle caps "
@@ -1120,7 +1300,7 @@ def run() -> int:
         # host prover would need ~4 x 48.56 GiB of host memory)
         log(f"[4] main path at N={FULL_N} "
             f"(at {time.perf_counter() - started:.1f} s)")
-        full_prep = prepare(FULL_N, workdir)
+        full_prep = prepare(FULL_N, workdir, os.path.join(workdir, "full"))
         report["full"] = {
             hasher: path(f"N={FULL_N} {hasher}", full_prep, hasher,
                          FULL_GOLDENS[hasher]) for hasher in PATH_KERNELS}
@@ -1146,6 +1326,11 @@ def run() -> int:
         report["cli"] = cli_path(workdir)
         log(f"    proof matches cli_fib_golden.json ({report['cli']})")
 
+        # 7. the sharded prover: a group of two ranks on the card over
+        # gloo, one rank over NCCL, on the traces of phases 3 and 4
+        torch.cuda.empty_cache()
+        report["sharded"] = sharded_path(workdir, started)
+
     jax_after = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
     if jax_after - jax_before:
         raise AssertionError(f"the port imported {sorted(jax_after - jax_before)}")
@@ -1154,9 +1339,10 @@ def run() -> int:
         raise AssertionError(f"the port imported {reference}")
 
     # launches: the sum over the runs of the main path (N=10 with both
-    # hashers, N=94000 with both, N=376000, the node tx)
+    # hashers, N=94000 with both, N=376000, the node tx, every rank of the
+    # sharded proves)
     runs = [*report["golden"].values(), *report["full"].values(),
-            report["large"], report["node"]]
+            report["large"], report["node"], *report["sharded"]]
     kernel_line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(r["launches"][c] for c in counters for r in runs),

@@ -21,6 +21,11 @@ On a CUDA device the products launch K3, the transforms K1, the grind K2
 and the evaluations K5; the Merkle hashing launches the blake3 kernels (K4
 and its absorb) or the Poseidon leaf, absorb and level kernels, as
 config.merkle_hasher says.
+
+Given an oracle with a mesh (parallel/sharded.py ShardedOracle), every rank
+of the mesh runs this prove: the commits, the quotient's classes, the FRI
+folds and the FRI trees are split over the ranks where they divide them,
+and every rank ends with the same proof.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..hash import poseidon as pos
 from ..hash.hashers import by_name
 from ..merkle import device as dmerkle
 from ..ntt import ntt as dntt
+from ..parallel import sharded as psh
 from .challenger import Challenger
 from .config import StarkConfig
 from .ctl_device import ctl_data_device, permutation_z_polys_device
@@ -68,6 +74,7 @@ from .oracle_device import (
 from .ops import TorchOps
 from .proof import AllProof, PublicValues, StarkOpeningSet, StarkProof
 from .prover import fri_instance_for_stark
+from .serialization import serialize_all_proof
 
 logger = logging.getLogger(__name__)
 
@@ -82,7 +89,7 @@ _COMBINE_ROWS = 16
 
 def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
                                   permutation_challenges, ctl_data, alphas,
-                                  degree_bits, num_permutation_zs
+                                  degree_bits, num_permutation_zs, mesh=None
                                   ) -> torch.Tensor:
     """compute_quotient_polys (prover.rs:571-705) on the device.
 
@@ -93,8 +100,10 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
     LDE holds), and the "next row" of a point stays inside its class as a
     roll by one. Each class runs the
     table's constraints (eval_packed, permutation checks, CTL checks, in the
-    host prover's order) in one pass. Returns the (num_alphas * qdf, n)
-    quotient chunks' coefficients."""
+    host prover's order) in one pass. With a mesh whose ranks divide the
+    classes, each rank runs its contiguous classes and one all_gather gives
+    every rank all of them (olavm_tpu/stark/prover_device.py:353-401).
+    Returns the (num_alphas * qdf, n) quotient chunks' coefficients."""
     device = trace_batch.coeffs.device
     F = TorchOps(device)
     degree = 1 << degree_bits
@@ -113,8 +122,8 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
     gen_pows = gf.powers(gen, degree, device)
     one = gf.scalar(1, device)
 
-    per_class = [[] for _ in alphas]  # [alpha][class] -> (n,)
-    for r in range(1 << qdb):
+    def class_values(r: int) -> torch.Tensor:
+        """(num_alphas, n) quotient values on residue class r."""
         shift = g.mul(g.MULTIPLICATIVE_GROUP_GENERATOR, pow(w, r, g.P))
         # selectors on shift*H, where x^n - 1 == shift^n - 1 is constant:
         # L_0(x) = (x^n-1)/(n (x-1)); L_{n-1}(x) = (x^n-1) g^{-1}/(n (x-g^{-1}))
@@ -147,12 +156,20 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
         eval_cross_table_lookup_checks(lv, nv, ctl_vars, consumer)
 
         zh_inv = gf.scalar(g.inv(c), device)
-        for i, acc in enumerate(consumer.accumulators()):
-            per_class[i].append(gf.mul(acc.expand(degree), zh_inv))
+        return torch.stack([gf.mul(acc.expand(degree), zh_inv)
+                            for acc in consumer.accumulators()])
+
+    n_classes = 1 << qdb
+    if mesh is not None and n_classes % psh.coords(mesh)[1] == 0:
+        classes = psh.shard_map_cat(
+            mesh, "quotient", n_classes,
+            lambda lo, hi: torch.stack([class_values(r)
+                                        for r in range(lo, hi)]))
+    else:
+        classes = torch.stack([class_values(r) for r in range(n_classes)])
 
     # interleave classes back to natural coset order j = (k << qdb) | r
-    quotient_values = torch.stack(
-        [torch.stack(pc, dim=-1).reshape(size) for pc in per_class])
+    quotient_values = classes.permute(1, 2, 0).reshape(len(alphas), size)
     coeffs = dntt.coset_ifft(quotient_values)
     limit = degree * qdf
     if limit < size and bool((coeffs[:, limit:] != 0).any()):
@@ -235,11 +252,14 @@ def fri_pow_device(current_hash: list[int], fri_config, device) -> int:
 
 
 class _DeviceExtTree:
-    """FRI commit-phase tree over extension values (single device): the
-    values in bit-reversed order, `arity` consecutive values per leaf."""
+    """FRI commit-phase tree over extension values: the values in
+    bit-reversed order, `arity` consecutive values per leaf. With a mesh
+    whose ranks divide the leaves in pairs, each rank hashes its contiguous
+    leaves and reduces its subtree (olavm_tpu/stark/prover_device.py:574-643);
+    every rank holds the whole tree."""
 
     def __init__(self, values: gfe.GFE, arity: int, cap_height: int,
-                 hasher_kind: str = "blake3"):
+                 hasher_kind: str = "blake3", mesh=None):
         n = values.shape[0]
         perm = dntt.bitrev_perm(n, values.re.device)
         self.values = gfe.GFE(values.re[perm], values.im[perm])
@@ -250,8 +270,19 @@ class _DeviceExtTree:
         cols = torch.stack([self.values.re.reshape(self.n_leaves, arity),
                             self.values.im.reshape(self.n_leaves, arity)],
                            dim=-1).reshape(self.n_leaves, 2 * arity)
-        digs = dmerkle.leaf_digests(cols.T.contiguous(), hasher_kind)
-        self.levels, self.cap = build_tree_device(digs, cap_height, hasher_kind)
+        if mesh is not None and self.n_leaves % (2 * psh.coords(mesh)[1]) == 0:
+            rank, size = psh.coords(mesh)
+            share = self.n_leaves // size
+            digs = dmerkle.leaf_digests(
+                cols[rank * share:(rank + 1) * share].T.contiguous(),
+                hasher_kind)
+            psh.PHASES["tree"] += 1
+            self.levels, self.cap = psh.sharded_tree(mesh, digs, cap_height,
+                                                     hasher_kind)
+        else:
+            digs = dmerkle.leaf_digests(cols.T.contiguous(), hasher_kind)
+            self.levels, self.cap = build_tree_device(digs, cap_height,
+                                                      hasher_kind)
 
     def leaf_values(self, coset_indices: np.ndarray) -> np.ndarray:
         """(k,) leaf indices -> host (k, arity, 2) u64 extension values."""
@@ -275,7 +306,7 @@ def _ext_scalar(v, device) -> gfe.GFE:
 
 
 def prove_openings_device(instance, openings_batches, oracles, challenger,
-                          config, degree_bits) -> FriProof:
+                          config, degree_bits, mesh=None) -> FriProof:
     """PolynomialBatch::prove_openings + fri_proof (fri/oracle.rs:167-243,
     fri/prover.rs:20-150), values first: over the LDE coset,
     F(x) = x * sum_b alpha^{suffix_b} (C_b(x) - y_b) / (x - z_b), with
@@ -311,7 +342,7 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
     c = dntt.coset_ifft(torch.stack([values.re, values.im]))
     coeffs = gfe.GFE(c[0], c[1])
     return fri_proof_device(oracles, coeffs, values, challenger, fri_config,
-                            degree_bits, config.merkle_hasher)
+                            degree_bits, config.merkle_hasher, mesh)
 
 
 def _combine_coeffs(polynomials, oracles, alpha, device):
@@ -349,10 +380,25 @@ def _sum_rows(x: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
-def fri_fold(coeffs: gfe.GFE, beta, arity: int) -> gfe.GFE:
+def fri_fold(coeffs: gfe.GFE, beta, arity: int, mesh=None) -> gfe.GFE:
     """One FRI fold (olavm_tpu/stark/prover_device.py:887-921): coeffs[k * arity + i] ->
     sum_i coeffs[k * arity + i] * beta^i for a host extension beta. Plain
-    torch in this version (its products launch K3 on the card)."""
+    torch in this version (its products launch K3 on the card). With a mesh
+    whose ranks divide the folded rows, each rank folds its contiguous rows
+    and one all_gather gives every rank all of them
+    (olavm_tpu/stark/prover_device.py:923-943)."""
+    rows = coeffs.shape[0] // arity
+    if mesh is not None and rows % psh.coords(mesh)[1] == 0:
+        out = psh.shard_map_cat(
+            mesh, "fold", rows, lambda lo, hi: _fold_stacked(
+                coeffs[lo * arity:hi * arity], beta, arity), dim=1)
+        return gfe.GFE(out[0], out[1])
+    folded = _fold_stacked(coeffs, beta, arity)
+    return gfe.GFE(folded[0], folded[1])
+
+
+def _fold_stacked(coeffs: gfe.GFE, beta, arity: int) -> torch.Tensor:
+    """fri_fold on one device, as one (2, m / arity) tensor of re and im."""
     device = coeffs.re.device
     re = coeffs.re.reshape(-1, arity)
     im = coeffs.im.reshape(-1, arity)
@@ -362,14 +408,15 @@ def fri_fold(coeffs: gfe.GFE, beta, arity: int) -> gfe.GFE:
         bp = ge.t_mul(bp, beta)
         acc = gfe.add(acc, gfe.mul(gfe.GFE(re[:, i], im[:, i]),
                                    _ext_scalar(bp, device)))
-    return acc
+    return torch.stack([acc.re, acc.im])
 
 
 def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
                      challenger, config, degree_bits: int,
-                     hasher_kind: str) -> FriProof:
+                     hasher_kind: str, mesh=None) -> FriProof:
     """FRI commit phase (trees, folds, re-FFTs), final polynomial, PoW and
-    query gathers; the trees are hashed with the named Merkle hasher."""
+    query gathers; the trees are hashed with the named Merkle hasher. With
+    a mesh the trees and folds are sharded where its ranks divide them."""
     hasher = by_name(hasher_kind)
     device = coeffs.re.device
     arity_schedule = config.reduction_arity_bits(degree_bits)
@@ -378,12 +425,13 @@ def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
     shift = g.MULTIPLICATIVE_GROUP_GENERATOR
     for arity_bits in arity_schedule:
         arity = 1 << arity_bits
-        tree = _DeviceExtTree(values, arity, config.cap_height, hasher_kind)
+        tree = _DeviceExtTree(values, arity, config.cap_height, hasher_kind,
+                              mesh)
         challenger.observe_cap(tree.cap, hasher)
         trees.append(tree)
 
         beta = ge.t(challenger.get_extension_challenge())
-        coeffs = fri_fold(coeffs, beta, arity)
+        coeffs = fri_fold(coeffs, beta, arity, mesh)
         shift = pow(shift, arity, g.P)
         v = dntt.coset_fft(torch.stack([coeffs.re, coeffs.im]), shift)
         values = gfe.GFE(v[0], v[1])
@@ -439,7 +487,8 @@ def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
 
 def prove_single_table_device(stark, config, trace_values: torch.Tensor,
                               trace_batch: DevicePolynomialBatch, ctl_data,
-                              challenger, timing) -> StarkProof:
+                              challenger, timing,
+                              oracle=DevicePolynomialBatch) -> StarkProof:
     degree = trace_values.shape[1]
     degree_bits = log2_strict(degree)
     rate_bits = config.fri_config.rate_bits
@@ -447,6 +496,9 @@ def prove_single_table_device(stark, config, trace_values: torch.Tensor,
     hasher = config.hasher()
     total_arities = sum(config.fri_config.reduction_arity_bits(degree_bits))
     assert total_arities <= degree_bits + rate_bits - cap_height
+    # a mesh-backed oracle (parallel.sharded.ShardedOracle) also shards the
+    # quotient classes, FRI folds and FRI trees over its mesh
+    mesh = getattr(oracle, "mesh", None)
 
     challenger.compact()
 
@@ -465,7 +517,7 @@ def prove_single_table_device(stark, config, trace_values: torch.Tensor,
     z_values = torch.stack(z_list)
 
     with timing.scope("Z commitment"):
-        zs_batch = DevicePolynomialBatch.from_values(
+        zs_batch = oracle.from_values(
             z_values, rate_bits, cap_height, config.merkle_hasher)
     challenger.observe_cap(zs_batch.cap, hasher)
 
@@ -474,10 +526,10 @@ def prove_single_table_device(stark, config, trace_values: torch.Tensor,
     with timing.scope("compute quotient polys"):
         quotient_coeffs = compute_quotient_polys_device(
             stark, config, trace_batch, zs_batch, permutation_challenges,
-            ctl_data, alphas, degree_bits, num_permutation_zs)
+            ctl_data, alphas, degree_bits, num_permutation_zs, mesh)
 
     with timing.scope("quotient commitment"):
-        quotient_batch = DevicePolynomialBatch.from_coeffs(
+        quotient_batch = oracle.from_coeffs(
             quotient_coeffs, rate_bits, cap_height, config.merkle_hasher)
     challenger.observe_cap(quotient_batch.cap, hasher)
 
@@ -500,7 +552,7 @@ def prove_single_table_device(stark, config, trace_values: torch.Tensor,
     with timing.scope("FRI opening proof"):
         opening_proof = prove_openings_device(
             instance, openings_batches, [trace_batch, zs_batch, quotient_batch],
-            challenger, config, degree_bits)
+            challenger, config, degree_bits, mesh)
 
     caps = (trace_batch.cap, zs_batch.cap, quotient_batch.cap)
     for b in (trace_batch, zs_batch, quotient_batch):
@@ -518,14 +570,18 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
                              trace_poly_values: list[np.ndarray],
                              public_values: PublicValues | None = None,
                              timing: TimingTree | None = None, *,
-                             device="cuda") -> AllProof:
+                             device="cuda",
+                             oracle=DevicePolynomialBatch) -> AllProof:
     """Device analogue of prover.prove_with_traces: the same challenger
     transcript, every heavy phase on `device`. trace_poly_values: per table
     (num_cols, degree) uint64 host arrays. The prove runs on the card unless
     the caller asks for another device (the CPU tests pass "cpu"); without a
     card the default raises, it never carries on on the CPU by itself. A
     Merkle hasher without a device path (keccak) raises at once: the host
-    prover, stark/prover.py, runs it."""
+    prover, stark/prover.py, runs it. `oracle` makes the commitments; the
+    sharded prover (parallel/sharded.py) passes a ShardedOracle, whose mesh
+    also shards the quotient and FRI, and every rank's table proofs are
+    then checked to agree."""
     timing = timing or TimingTree()
     device = torch.device(device)
     dmerkle.check_hasher(config.merkle_hasher)
@@ -536,6 +592,7 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
     hasher = config.hasher()
+    mesh = getattr(oracle, "mesh", None)
 
     with timing.scope("upload traces"):
         values_dev = [gf.from_u64(t, device) for t in trace_poly_values]
@@ -545,7 +602,7 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
         for ti, v in enumerate(values_dev):
             logger.info("trace commit %d/%d shape=%s", ti + 1, len(values_dev),
                         tuple(v.shape))
-            trace_batches.append(DevicePolynomialBatch.from_values(
+            trace_batches.append(oracle.from_values(
                 v, rate_bits, cap_height, config.merkle_hasher))
 
     challenger = Challenger()
@@ -563,7 +620,10 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
         with timing.scope(f"prove table {idx}"):
             stark_proofs.append(prove_single_table_device(
                 stark, config, values_dev[idx], trace_batches[idx],
-                ctl_data_per_table[idx], challenger, timing))
+                ctl_data_per_table[idx], challenger, timing, oracle))
+        if mesh is not None:
+            psh.check_agree(mesh, serialize_all_proof(AllProof(
+                stark_proofs[-1:], [], PublicValues())), f"table {idx}")
         # release what only this table needed
         values_dev[idx] = None
         ctl_data_per_table[idx] = None

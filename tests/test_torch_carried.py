@@ -281,6 +281,43 @@ def test_whole_module_copy_is_unchanged(path):
                                         "python -m olavm_tpu_torch.")
 
 
+def test_config_copy_adds_only_the_mesh_backend_and_device():
+    # stark/config.py is whole but for MeshConfig's two torch.distributed
+    # fields and the arguments of build_mesh's make_mesh (the port's)
+    import difflib
+
+    from olavm_tpu.stark import config as j_config
+    from olavm_tpu_torch.stark import config as t_config
+
+    with open(os.path.join(ROOT, "olavm_tpu", "stark", "config.py")) as f:
+        original = f.read()
+    with open(os.path.join(ROOT, "olavm_tpu_torch", "stark", "config.py")) as f:
+        copy = f.read()
+    assert copy.startswith('"""Carried from olavm_tpu/stark/config.py: ')
+    body = copy[copy.index("\n\n") + 2:]
+    diff = [ln for ln in difflib.ndiff(original[3:].splitlines(),
+                                       body.splitlines())
+            if ln[:2] in ("- ", "+ ")]
+    assert diff == [
+        "+     # torch.distributed backend of the ranks' process group; None = \"nccl\"",
+        "+     # on the card, \"gloo\" on the CPU",
+        "+     backend: str | None = None",
+        "+     # the device every rank proves on: \"cuda\" (cuda:(local rank % cards))",
+        "+     # or \"cpu\"",
+        "+     device_type: str = \"cuda\"",
+        "-         return make_mesh(self.n_devices, self.shape, self.axis_names)",
+        "+         return make_mesh(self.n_devices, self.shape, self.axis_names,",
+        "+                          self.device_type)",
+    ]
+    for cfg in (j_config, t_config):
+        sharded = cfg.StarkConfig.sharded_config(4)
+        assert sharded.mesh.n_devices == 4 and sharded.mesh.axis_names == (
+            "col", "row")
+        assert cfg.StarkConfig.standard_fast_config().mesh is None
+    assert t_config.MeshConfig().backend is None
+    assert t_config.MeshConfig().device_type == "cuda"
+
+
 BASE_OPS = {
     "add": lambda o, a, b: o.add(a, b), "sub": lambda o, a, b: o.sub(a, b),
     "mul": lambda o, a, b: o.mul(a, b), "neg": lambda o, a, b: o.neg(a),

@@ -1,7 +1,8 @@
 """The port stands on its own: every olavm_tpu_torch module imports with jax,
 jaxlib AND the olavm_tpu package refused, and the main path (the fib-loop
 fixture's execute and trace generation, then a ToySystem-sized prove and
-verify on the CPU path) runs in that state or, where both are installed,
+verify on the CPU path, and the same prove sharded over a one-rank group)
+runs in that state or, where both are installed,
 without loading either. No source of the port imports jax or olavm_tpu or
 reads a file out of olavm_tpu/, and importing the port leaves the reference
 package's host libraries as they are.
@@ -44,7 +45,8 @@ result["entry_points"] = sorted(set(names) & {
     "olavm_tpu_torch.cli.main", "olavm_tpu_torch.runtime.trace_io",
     "olavm_tpu_torch.stark.oracle", "olavm_tpu_torch.stark.prover",
     "olavm_tpu_torch.utils.trace_analyzer", "olavm_tpu_torch.node.olavm",
-    "olavm_tpu_torch.state.node_state", "olavm_tpu_torch.state.store"})
+    "olavm_tpu_torch.state.node_state", "olavm_tpu_torch.state.store",
+    "olavm_tpu_torch.parallel", "olavm_tpu_torch.parallel.sharded"})
 """
 
 REFERENCE_NATIVE = """
@@ -143,6 +145,25 @@ verify_proof(Toy(), proof, config)
 result["verified"] = True
 """
 
+SHARDED_PROVE = """
+# after TOY_PROVE: the sharded prover in a one-rank gloo group on the CPU
+import tempfile
+import torch.distributed as dist
+from olavm_tpu_torch.parallel.sharded import prove_with_traces_sharded
+from olavm_tpu_torch.stark.config import MeshConfig
+from olavm_tpu_torch.stark.serialization import serialize_all_proof
+
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", init_method="file://" + d + "/rdv",
+                            world_size=1, rank=0)
+    config.mesh = MeshConfig(device_type="cpu")
+    sharded = prove_with_traces_sharded(
+        Toy(), config, [np.stack([a, b, c, c[::-1].copy()]), a.reshape(1, n)],
+        device="cpu")
+    dist.destroy_process_group()
+result["sharded_equal"] = serialize_all_proof(sharded) == serialize_all_proof(proof)
+"""
+
 
 def _run(*parts: str) -> dict:
     """Run the parts in a fresh interpreter; returns their `result` dict and
@@ -165,13 +186,14 @@ def _run(*parts: str) -> dict:
 
 def test_port_imports_and_runs_with_jax_refused():
     res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, NODE_TX,
-               TOY_PROVE)
+               TOY_PROVE, SHARDED_PROVE)
     assert res["modules"] >= 83
-    # the host prover, the CLI's and the node's modules, among them
-    assert len(res["entry_points"]) == 8
+    # the host prover, the CLI's, the node's and the sharded prover's
+    # modules, among them
+    assert len(res["entry_points"]) == 10
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
     assert res["node"] == [1, 12]
-    assert res["verified"]
+    assert res["verified"] and res["sharded_equal"]
     assert res["jax_loaded"] == [] and res["reference_loaded"] == []
 
 
