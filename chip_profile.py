@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Where a full-size prove of the PyTorch port spends the card's time.
+"""Where a full-size prove of the PyTorch port spends the card's time, with
+the device prover's programs (CUDA graphs) and without them.
 
     python3 chip_profile.py [--hasher blake3|poseidon]   # needs one CUDA card
 
 Builds the kernels, then proves the fib-loop fixture at N=94000 (2^20 CPU
 rows, chip_smoke.py's full-size run) with the given Merkle hasher (blake3
-by default) four times in one process: the first prove and two warm
-proves untraced, timed on the host clock around torch.cuda.synchronize(),
-then one under torch.profiler with CUDA activities only. From the trace it
-sums the device time of every kernel by name and counts the kernels. That
-sum, `device_kernel_seconds`, is the steady number: the host clock of the
-card's machine moves by tens of percent between runs. The busy share is given
-twice: `busy_share_traced` is the sum over the traced prove's own seconds (one
-run, but the denominator holds the profiler's cost), `busy_share_warm` is the
-sum over each untraced warm prove's seconds, as a [low, high] range. Prints one
-JSON object as the last line and writes the same, with the kernel table, to
+by default) in one process: first without the programs (programs=False,
+the cold prove, before any program exists), then with them (the prove
+that captures them), then four warm proves in turns (without, with, with,
+without), each untraced and timed on the host clock around
+torch.cuda.synchronize(), then one traced prove of each kind under
+torch.profiler with CUDA activities only. From each trace it sums the
+device time of every kernel by name and counts the kernels. That sum,
+`device_kernel_seconds`, is the steady number: the host clock of the
+card's machine moves by tens of percent between runs. The busy share is the
+sum over each untraced warm prove's seconds, as a [low, high] range. Per
+prove it also gives the launches of the port's kernels that the host issued
+and those that graph replays ran, and the peak device memory, allocated and
+reserved (the graphs' shared pool is reserved memory that allocations
+outside the graphs cannot use, so the reserved peak is given beside the
+allocated one), with the programs' buffers and pool. Prints one JSON object
+as the last line and writes the same, with the kernel tables, to
 chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon).
 """
 
@@ -27,6 +34,7 @@ import os
 import statistics
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOP_KERNELS = 25
@@ -48,63 +56,109 @@ def main() -> int:
 
     import chip_smoke
     from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.stark.config import StarkConfig
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
     from olavm_tpu_torch.stark.serialization import serialize_all_proof
 
     smi = chip_smoke.nvidia_smi()
     kernels.build(force=True)
     with tempfile.TemporaryDirectory() as workdir:
-        prove, _, _ = chip_smoke.prepare(chip_smoke.FULL_N, workdir)
+        trace_dir = os.path.join(workdir, "full")
+        chip_smoke.prepare(chip_smoke.FULL_N, workdir, trace_dir)
+        traces, public_values, ola, _ = chip_smoke.load_traces(trace_dir)
     device = torch.device("cuda", 0)
+    config = StarkConfig.standard_fast_config()
+    config.merkle_hasher = args.hasher
 
-    torch.cuda.reset_peak_memory_stats()
-    seconds = []
-    for _ in range(3):
+    def prove(programs: bool) -> dict:
         kernels.reset_launches()
-        proof, s, _ = prove(device, merkle_hasher=args.hasher)
-        seconds.append(s)
-        print(f"untraced prove {s:.3f} s", file=sys.stderr, flush=True)
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    digest = hashlib.sha256(serialize_all_proof(proof)).hexdigest()
-    del proof
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof = prove_with_traces_device(ola, config, traces,
+                                         public_values=public_values,
+                                         device=device, programs=programs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        host = sum(kernels.HOST_LAUNCHES.values())
+        run = {
+            "programs": programs, "seconds": seconds,
+            "host_issued_launches": host,
+            "replayed_launches": sum(kernels.LAUNCHES.values()) - host,
+            "launches": dict(kernels.LAUNCHES),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "program_memory_bytes": chip_smoke.program_memory(),
+            "proof_sha256": hashlib.sha256(
+                serialize_all_proof(proof)).hexdigest()}
+        print(f"prove programs={programs}: {seconds:.3f} s, "
+              f"{host} host-issued launches, peak "
+              f"{run['peak_memory_bytes'] / 2**30:.2f} GiB", file=sys.stderr,
+              flush=True)
+        return run
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, traced_seconds, _ = prove(device, merkle_hasher=args.hasher)
-    rows = [(e.key, e.count, getattr(e, "device_time_total", None)
-             or getattr(e, "cuda_time_total", 0.0))
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[2] > 0]
-    rows.sort(key=lambda r: -r[2])
-    device_seconds = sum(r[2] for r in rows) / 1e6
-    kernel_count = sum(r[1] for r in rows)
-    warm = seconds[1:]
-    result = {
-        "card": smi,
-        "torch": torch.__version__,
-        "N": chip_smoke.FULL_N,
-        "merkle_hasher": args.hasher,
-        "prove_seconds_untraced": seconds,
-        "prove_seconds_traced": traced_seconds,
-        "warm_prove_seconds": statistics.median(warm),
-        "device_kernel_seconds": device_seconds,
-        "device_kernels": kernel_count,
-        "busy_share_traced": device_seconds / traced_seconds,
-        "busy_share_warm": [device_seconds / max(warm),
-                            device_seconds / min(warm)],
-        "peak_memory_bytes": int(peak),
-        "launches": launches,
-        "proof_sha256": digest,
-    }
-    table = [{"kernel": k[:120], "count": c, "device_ms": t / 1e3}
-             for k, c, t in rows[:TOP_KERNELS]]
-    for row in table:
-        print(f"{row['device_ms']:10.2f} ms {row['count']:8d}  {row['kernel']}",
-              file=sys.stderr)
+    runs = [prove(False), prove(True)]  # cold; the capture
+    for programs in (False, True, True, False):
+        runs.append(prove(programs))
+
+    traced = {}
+    for programs in (False, True):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced_run = prove(programs)
+        rows = [(e.key, e.count, getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0.0))
+                for e in prof.key_averages()]
+        rows = [r for r in rows if r[2] > 0]
+        rows.sort(key=lambda r: -r[2])
+        traced["programs" if programs else "eager"] = {
+            "prove_seconds_traced": traced_run["seconds"],
+            "device_kernel_seconds": sum(r[2] for r in rows) / 1e6,
+            "device_kernels": sum(r[1] for r in rows),
+            "top_kernels": [{"kernel": k[:120], "count": c,
+                             "device_ms": t / 1e3}
+                            for k, c, t in rows[:TOP_KERNELS]]}
+
+    digests = {r["proof_sha256"] for r in runs}
+    if len(digests) != 1:
+        raise AssertionError(f"the proves differ: {sorted(digests)}")
+    result = {"card": smi, "torch": torch.__version__, "N": chip_smoke.FULL_N,
+              "merkle_hasher": args.hasher, "proof_sha256": digests.pop()}
+    for mode, programs in (("eager", False), ("programs", True)):
+        warm = [r for r in runs[2:] if r["programs"] == programs]
+        seconds = [r["seconds"] for r in warm]
+        device_seconds = traced[mode]["device_kernel_seconds"]
+        result[mode] = {
+            "first_prove_seconds": runs[1 if programs else 0]["seconds"],
+            "warm_prove_seconds": seconds,
+            "warm_prove_seconds_median": statistics.median(seconds),
+            "device_kernel_seconds": device_seconds,
+            "device_kernels": traced[mode]["device_kernels"],
+            "prove_seconds_traced": traced[mode]["prove_seconds_traced"],
+            "busy_share_warm": [device_seconds / max(seconds),
+                                device_seconds / min(seconds)],
+            "host_issued_launches": [r["host_issued_launches"] for r in warm],
+            "replayed_launches": [r["replayed_launches"] for r in warm],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in warm],
+            "peak_reserved_bytes": [r["peak_reserved_bytes"] for r in warm],
+        }
+    result["cold_eager_peak_memory_bytes"] = runs[0]["peak_memory_bytes"]
+    result["cold_eager_peak_reserved_bytes"] = runs[0]["peak_reserved_bytes"]
+    result["program_memory_bytes"] = runs[-1]["program_memory_bytes"]
+    result["host_issued_share"] = (
+        max(result["programs"]["host_issued_launches"])
+        / min(result["eager"]["host_issued_launches"]))
+    for mode in ("eager", "programs"):
+        for row in traced[mode]["top_kernels"]:
+            print(f"{mode:8s} {row['device_ms']:10.2f} ms {row['count']:8d}  "
+                  f"{row['kernel']}", file=sys.stderr)
     out_dir = os.path.join(ROOT, "chip_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
     name = "profile.json" if args.hasher == "blake3" else "profile_poseidon.json"
     with open(os.path.join(out_dir, name), "w") as f:
-        json.dump({**result, "top_kernels": table}, f, indent=1)
+        json.dump({**result, "runs": runs,
+                   "top_kernels": {m: traced[m]["top_kernels"]
+                                   for m in traced}}, f, indent=1)
     print(json.dumps(result))
     return 0
 

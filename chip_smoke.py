@@ -18,17 +18,22 @@ without printing a result:
    shape of an N=94000 prove (K5_SHAPES), timed at (94, 2^20) x 28 and x 4
    points;
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
-   card with blake3 and then with Poseidon Merkle caps (one trace
-   generation) must serialize to the sha256 and length of the goldens that
-   olavm_tpu's host prover produced (tests/fixtures/fib_loop_golden.json,
-   fib_loop_golden_poseidon.json), and the port's verifier must accept both;
+   card four times on one trace generation, as a capture and a replay with
+   each Merkle hasher: with blake3 caps (its programs captured), then
+   Poseidon caps (replaying them under other challenges), then, with the
+   programs dropped, Poseidon (captured) and blake3 (replayed); each must
+   serialize to the sha256 and length of the golden that olavm_tpu's host
+   prover produced (tests/fixtures/fib_loop_golden.json,
+   fib_loop_golden_poseidon.json), the port's verifier must accept it, and
+   each replaying prove must capture no program;
 4. full size: the fixture at N=94000 (2^20 CPU rows) through
    run_program_fast -> generate_traces_fast, then prove_with_traces_device
-   -> verify_proof twice on those traces, with blake3 and with Poseidon
-   Merkle caps, each proof equal to the golden that olavm_tpu's host prover
-   made at N=94000 (tests/fixtures/fib_loop_golden_full.json and
-   fib_loop_golden_full_poseidon.json); then N=376000 (2^22 CPU rows) with
-   blake3 caps, proved and verified (no golden exists at this size);
+   -> verify_proof four times on those traces in the same turns, each proof
+   equal to the golden that olavm_tpu's host prover made at N=94000
+   (tests/fixtures/fib_loop_golden_full.json and
+   fib_loop_golden_full_poseidon.json); then, with the programs dropped,
+   N=376000 (2^22 CPU rows) with blake3 caps, proved and verified (no golden
+   exists at this size);
 5. the node: olavm_tpu_torch.node's OlaVM deploys the sccall fixture pair
    (manual_deploy), runs the caller's tx (execute_tx), merges its envs
    (gen_tx_trace) and generates its tables; the card proves them, the
@@ -49,9 +54,15 @@ without printing a result:
    column-sharded iNTT, the commit, the quotient's classes, the FRI fold
    and trees) must have run on every rank.
 
-Every prove of phases 3-5, and every rank's prove of phase 7, is one run of
-the main path: each kernel's launch count is reset just before it and read
-just after it (in the rank's own process); the run must have launched its
+Every prove runs with the device prover's programs (olavm_tpu_torch/utils/
+jitcache.py: CUDA graphs captured at their first use in the process and
+replayed after; the programs are dropped before N=376000, before the node
+and before phase 7, whose ranks capture their own). Every prove of phases
+3-5, and every rank's prove of phase 7, is one run of the main path: each
+kernel's launch count is reset just before it and read just after it (in
+the rank's own process), counting the launches the host issued and those
+that graph replays ran (each capture records its graph's launches, and
+each replay adds them); the run must have launched its
 hasher's kernels (K1, K2, K3, add, sub, K5 and the hasher's leaf, absorb and
 level kernels), none of the other hasher's, and its leaf and absorb kernels
 as often as its commits' shapes need. Each records prove and verify seconds
@@ -61,7 +72,8 @@ resident memory.
 At the end neither jax nor any module of olavm_tpu may have been loaded, in
 this process or in any rank. The
 last lines are every prove's seconds, peak memory, launch counts and
-sha256, the nanoseconds per permutation of K2 and of the Poseidon leaf and
+sha256, the programs (per tag at N=94000, per prove the launches the host
+issued and those replayed), the nanoseconds per permutation of K2 and of the Poseidon leaf and
 level kernels at their largest shapes, the `kernels` JSON line (launches
 summed over the proves), the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}. A longer report goes to
@@ -902,6 +914,7 @@ def prove_and_verify(prepared, device, merkle_hasher: str):
     timing = TimingTree()
     proof, seconds["prove"], config = prove(device, timing, merkle_hasher)
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
 
     t0 = time.perf_counter()
     verify_proof(ola, proof, config)
@@ -910,11 +923,54 @@ def prove_and_verify(prepared, device, merkle_hasher: str):
     data = serialize_all_proof(proof)
     report.update({
         "peak_memory_bytes": int(peak),
+        "peak_reserved_bytes": int(peak_reserved),
+        "program_memory_bytes": program_memory(),
         "proof_bytes": len(data),
         "proof_sha256": hashlib.sha256(data).hexdigest(),
         "prove_scopes": [[d, name, s] for d, name, s in timing.records],
     })
     return data, report
+
+
+def program_memory() -> dict:
+    """Device bytes held by the programs (olavm_tpu_torch/utils/jitcache.py)
+    now: their input and output buffers and their shared graph pool."""
+    from olavm_tpu_torch.utils import jitcache
+
+    return {"buffers": jitcache.buffer_bytes(), "pool": jitcache.pool_bytes()}
+
+
+def program_counts(before: dict, after: dict) -> dict:
+    """Captures, replays and the kernel launches the replays ran between two
+    jitcache.stats(), in all and per program tag."""
+    fields = ("captures", "replays", "replayed_launches")
+    out = {**dict.fromkeys(fields, 0), "by_tag": {}}
+    for key, st in after.items():
+        old = before.get(key, dict.fromkeys(fields, 0))
+        tag = out["by_tag"].setdefault(st["tag"], dict.fromkeys(fields, 0))
+        for k in fields:
+            tag[k] += st[k] - old[k]
+            out[k] += st[k] - old[k]
+    return out
+
+
+def program_summary() -> dict:
+    """jitcache.stats() summed per program tag: keys, captures, replays,
+    graph nodes (and the most in one graph), capture seconds, launches of
+    one replay of each key."""
+    from olavm_tpu_torch.utils import jitcache
+
+    tags = {}
+    for st in jitcache.stats().values():
+        t = tags.setdefault(st["tag"], {
+            "keys": 0, "captures": 0, "replays": 0, "nodes": 0,
+            "max_nodes": 0, "capture_seconds": 0.0, "launches": 0})
+        t["keys"] += 1
+        t["max_nodes"] = max(t["max_nodes"], st["nodes"])
+        for k in ("captures", "replays", "nodes", "capture_seconds",
+                  "launches"):
+            t[k] += st[k]
+    return tags
 
 
 def merkle_hash_counts(ola, table_shapes, config) -> dict:
@@ -1101,6 +1157,7 @@ def sharded_rank(workdir: str, backend: str, jobs) -> list[dict]:
     from olavm_tpu_torch.stark.config import MeshConfig, StarkConfig
     from olavm_tpu_torch.stark.serialization import serialize_all_proof
     from olavm_tpu_torch.stark.verifier import verify_proof
+    from olavm_tpu_torch.utils import jitcache
     from olavm_tpu_torch.utils.timing import TimingTree
 
     mesh = psh.make_mesh(device_type="cuda")
@@ -1118,6 +1175,7 @@ def sharded_rank(workdir: str, backend: str, jobs) -> list[dict]:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         psh.reset_phases()
+        before = jitcache.stats()
         timing = TimingTree()
         t0 = time.perf_counter()
         proof = psh.prove_with_traces_sharded(
@@ -1126,7 +1184,10 @@ def sharded_rank(workdir: str, backend: str, jobs) -> list[dict]:
         torch.cuda.synchronize()
         seconds = {"prove": time.perf_counter() - t0}
         launches, phases = dict(kernels.LAUNCHES), dict(psh.PHASES)
+        host_launches = dict(kernels.HOST_LAUNCHES)
+        programs = program_counts(before, jitcache.stats())
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
         if rank == 0:
             t0 = time.perf_counter()
             verify_proof(ola, proof, config)
@@ -1137,8 +1198,11 @@ def sharded_rank(workdir: str, backend: str, jobs) -> list[dict]:
             "rank": rank, "world": world, "backend": dist.get_backend(),
             "card": torch.cuda.current_device(), "merkle_hasher": hasher,
             "seconds": seconds, "peak_memory_bytes": int(peak),
+            "peak_reserved_bytes": int(peak_reserved),
+            "program_memory_bytes": program_memory(),
             "host_peak_resident_bytes": host_peak_resident(),
-            "launches": launches, "sharded_phases": phases,
+            "launches": launches, "host_launches": host_launches,
+            "programs": programs, "sharded_phases": phases,
             "proof_bytes": len(data),
             "proof_sha256": hashlib.sha256(data).hexdigest(),
             "prove_scopes": [[d, name, s] for d, name, s in timing.records]})
@@ -1228,6 +1292,7 @@ def run() -> int:
     jax_before = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
 
     from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.utils import jitcache
 
     device = torch.device("cuda", 0)
     report = {}
@@ -1260,58 +1325,88 @@ def run() -> int:
     report["plain_steps_ms"] = time_plain_steps(device, rng)
     torch.cuda.empty_cache()
 
-    def path(label, prepared, hasher, golden_file):
+    def path(label, prepared, hasher, golden_file, replays=False):
         """One path of the main path: every launch count set to 0 just
         before its prove and read just after it (the verifier runs on the
         host), its own kernels launched and the other hasher's not, its leaf
         kernels launched as often as its commits' shapes need, and the proof
-        equal to its golden where there is one."""
+        equal to its golden where there is one. With `replays`, the prove
+        must capture no program and replay some: every program it runs was
+        captured by an earlier prove, whose challenges were other."""
         kernels.reset_launches()
+        before = jitcache.stats()
         _, rep = prove_and_verify(prepared, device, hasher)
         rep["label"] = label
         launches = rep["launches"] = dict(kernels.LAUNCHES)
+        rep["host_launches"] = dict(kernels.HOST_LAUNCHES)
+        rep["programs"] = program_counts(before, jitcache.stats())
+        if replays and (rep["programs"]["captures"]
+                        or not rep["programs"]["replays"]):
+            raise AssertionError(f"{label}: must replay programs captured "
+                                 f"by an earlier prove, ran {rep['programs']}")
         rep["host_peak_resident_bytes"] = host_peak_resident()
         rep["merkle_hashing"] = check_path_launches(
             launches, hasher, prepared[2], rep["table_shapes"])
         if golden_file:
             rep["golden"] = check_golden(rep, golden_file)
+        host = sum(rep["host_launches"].values())
         log(f"    {label}: seconds {rep['seconds']}, peak "
-            f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB on the card, "
+            f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB on the card "
+            f"({rep['peak_reserved_bytes'] / 2**30:.2f} reserved; programs "
+            f"{rep['program_memory_bytes']}), "
             f"{rep['host_peak_resident_bytes'] / 2**30:.2f} GiB host resident, "
             f"proof {rep['proof_bytes']} bytes sha256 {rep['proof_sha256']}, "
-            f"launches {launches}")
+            f"launches {launches} ({host} issued by the host, "
+            f"{sum(launches.values()) - host} replayed), programs "
+            f"{ {k: v for k, v in rep['programs'].items() if k != 'by_tag'} }")
         torch.cuda.empty_cache()
         return rep
 
+    def golden_pair(n, prepared, goldens):
+        """Both hashers' goldens at one size, each met by a prove that
+        replays programs that a prove with the other hasher, and so with
+        other challenges, captured: blake3 captures and Poseidon replays,
+        then the programs are dropped and Poseidon captures and blake3
+        replays. Returns the four reports by label."""
+        reps = {}
+        for first, second in (("blake3", "poseidon"), ("poseidon", "blake3")):
+            jitcache.clear()
+            reps[f"N={n} {first} (captures)"] = path(
+                f"N={n} {first} (captures)", prepared, first, goldens[first])
+            reps[f"N={n} {second}"] = path(
+                f"N={n} {second}", prepared, second, goldens[second],
+                replays=True)
+        return reps
+
     with tempfile.TemporaryDirectory() as workdir:
         # 3. parity with the JAX package's goldens, both Merkle hashers on
-        # the same traces
+        # the same traces, each on a prove that replays programs captured
+        # under the other's challenges
         small = prepare(10, workdir, os.path.join(workdir, "small"))
-        report["golden"] = {}
-        for hasher, golden_file in GOLDENS.items():
-            log(f"[3] golden parity at N=10, {hasher} Merkle caps "
-                f"(at {time.perf_counter() - started:.1f} s)")
-            report["golden"][hasher] = path(f"N=10 {hasher}", small, hasher,
-                                            golden_file)
+        log(f"[3] golden parity at N=10, both Merkle caps "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        report["golden"] = golden_pair(10, small, GOLDENS)
         del small
 
         # 4. the main path at full size, both Merkle hashers on the same
         # traces, then 2^22 CPU rows with blake3 caps (no golden: olavm_tpu's
-        # host prover would need ~4 x 48.56 GiB of host memory)
+        # host prover would need ~4 x 48.56 GiB of host memory), after the
+        # smaller sizes' programs are dropped
         log(f"[4] main path at N={FULL_N} "
             f"(at {time.perf_counter() - started:.1f} s)")
         full_prep = prepare(FULL_N, workdir, os.path.join(workdir, "full"))
-        report["full"] = {
-            hasher: path(f"N={FULL_N} {hasher}", full_prep, hasher,
-                         FULL_GOLDENS[hasher]) for hasher in PATH_KERNELS}
+        report["full"] = golden_pair(FULL_N, full_prep, FULL_GOLDENS)
+        report["programs_full"] = program_summary()
         del full_prep
         log(f"[4] main path at N={LARGE_N} "
             f"(at {time.perf_counter() - started:.1f} s)")
+        jitcache.clear()
         large_prep = prepare(LARGE_N, workdir)
         report["large"] = path(f"N={LARGE_N} blake3", large_prep, "blake3",
                                None)
         log(f"    shapes {report['large']['table_shapes']}")
         del large_prep
+        jitcache.clear()
 
         # 5. the node: deploy the sccall pair, run the caller's tx, prove its
         # tables on the card
@@ -1327,8 +1422,9 @@ def run() -> int:
         log(f"    proof matches cli_fib_golden.json ({report['cli']})")
 
         # 7. the sharded prover: a group of two ranks on the card over
-        # gloo, one rank over NCCL, on the traces of phases 3 and 4
-        torch.cuda.empty_cache()
+        # gloo, one rank over NCCL, on the traces of phases 3 and 4 (each
+        # rank captures its own programs)
+        jitcache.clear()
         report["sharded"] = sharded_path(workdir, started)
 
     jax_after = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
@@ -1363,6 +1459,20 @@ def run() -> int:
             "host_peak_resident_bytes": r["host_peak_resident_bytes"],
             "launches": r["launches"], "proof_sha256": r["proof_sha256"]}
         for r in runs}}))
+    # the programs: per tag at N=94000 (keys, captures, replays, graph
+    # nodes, capture seconds), and per prove the launches the host issued
+    # and those that graph replays ran, captures and replays
+    print(json.dumps({"programs": {
+        "by_tag_after_n94000": report["programs_full"],
+        "proves": {r["label"]: {
+            "host_issued": sum(r["host_launches"].values()),
+            "replayed": sum(r["launches"].values())
+            - sum(r["host_launches"].values()),
+            "captures": r["programs"]["captures"],
+            "replays": r["programs"]["replays"],
+            "peak_reserved_bytes": r.get("peak_reserved_bytes"),
+            "program_memory_bytes": r.get("program_memory_bytes")}
+            for r in runs}}}))
     print(json.dumps({"ns_per_permutation": {
         name: report["kernels"][name]["ms"] * 1e6 / perms
         for name, perms in report["kernels"]["permutations"].items()}}))

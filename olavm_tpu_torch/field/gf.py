@@ -198,7 +198,7 @@ def _binop_cuda(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = getattr(kernels.lib("gf_mul"), _BINOPS[name])
     kernels.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, sa, sb,
                      kernels.stream_ptr(out)), name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
 
 
@@ -267,15 +267,20 @@ def inv(a: torch.Tensor) -> torch.Tensor:
 def powers(base, n: int, device) -> torch.Tensor:
     """[1, b, b^2, ..., b^{n-1}] by log-doubling (log2(n) array muls).
     `base` is a host int (power_rows: each doubling's b^m computed on the
-    host) or a 0-dim tensor."""
+    host and copied to the device) or a 0-dim tensor (b^m squared on the
+    device: no host value and no host copy, so a program can take its base
+    from an input)."""
     if not isinstance(base, torch.Tensor):
         return power_rows([base], n, device)[0]
     out = ones((1,), device)
+    bm = base  # base^length
     length = 1
     while length < n:
         step = min(length, n - length)
-        out = torch.cat([out, mul(out[:step], exp_const(base, length))])
+        out = torch.cat([out, mul(out[:step], bm)])
         length += step
+        if length < n:
+            bm = square(bm)
     return out[:n]
 
 
@@ -395,7 +400,7 @@ def eval_points(coeffs: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
         coeffs.data_ptr(), pows.data_ptr(), part.data_ptr(), out.data_ptr(),
         n, C, k, plan.cols, plan.points, plan.slices, plan.chunk_len,
         kernels.stream_ptr(coeffs)), "eval_points")
-    kernels.LAUNCHES["eval_points"] += 1
+    kernels.count("eval_points")
     return out
 
 

@@ -89,14 +89,18 @@ def exp_const(a: GFE, e: int) -> GFE:
 
 
 def powers(base: GFE, n: int) -> GFE:
-    """[1, b, ..., b^{n-1}] by log-doubling; base is a 0-dim GFE."""
+    """[1, b, ..., b^{n-1}] by log-doubling; base is a 0-dim GFE, b^m
+    squared on the device."""
     out = ones((1,), base.re.device)
+    bm = base  # base^length
     length = 1
     while length < n:
         step = min(length, n - length)
-        nxt = mul(out[:step], exp_const(base, length))
+        nxt = mul(out[:step], bm)
         out = GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
         length += step
+        if length < n:
+            bm = mul(bm, bm)
     return out[:n]
 
 

@@ -302,7 +302,7 @@ def _permute_cuda(state: torch.Tensor) -> torch.Tensor:
     kernels.check(lib.gl_poseidon_permute(state.data_ptr(), out.data_ptr(), n,
                                           kernels.stream_ptr(state)),
                   "poseidon")
-    kernels.LAUNCHES["poseidon"] += 1
+    kernels.count("poseidon")
     return out
 
 
@@ -432,7 +432,7 @@ def leaves(cols: torch.Tensor) -> torch.Tensor:
     kernels.check(lib.gl_poseidon_leaves(cols.data_ptr(), out.data_ptr(), n, C,
                                          kernels.stream_ptr(cols)),
                   "poseidon_leaves")
-    kernels.LAUNCHES["poseidon_leaves"] += 1
+    kernels.count("poseidon_leaves")
     return out
 
 
@@ -460,7 +460,7 @@ def absorb(block: torch.Tensor, state, final: bool) -> torch.Tensor:
         block.data_ptr(), None if state is None else state.data_ptr(),
         state_out, digest_out, n, W, kernels.stream_ptr(block)),
         "poseidon_absorb")
-    kernels.LAUNCHES["poseidon_absorb"] += 1
+    kernels.count("poseidon_absorb")
     return out
 
 
@@ -490,5 +490,5 @@ def level(digests: torch.Tensor) -> torch.Tensor:
     kernels.check(lib.gl_poseidon_level(digests.data_ptr(), out.data_ptr(), n,
                                         kernels.stream_ptr(digests)),
                   "poseidon_level")
-    kernels.LAUNCHES["poseidon_level"] += 1
+    kernels.count("poseidon_level")
     return out

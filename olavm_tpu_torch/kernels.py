@@ -8,8 +8,12 @@ nvcc process per source.
 
 Every C entry point launches on the stream it is given and returns the CUDA
 error code of its launches; `check` raises on a nonzero code. Each kernel
-wrapper adds one to its entry of `LAUNCHES` per call that launched its
-kernel, so a run can show which kernels its main path went through.
+wrapper calls `count` once per call that launched its kernel, so a run can
+show which kernels its main path went through: `LAUNCHES` counts every
+launch that ran, `HOST_LAUNCHES` those the host issued itself. While a
+program (utils/jitcache.py) is being captured into a CUDA graph nothing
+runs: its wrappers' launches are recorded for the program (`recording`),
+which adds them to `LAUNCHES` on every replay (`add_replayed`).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -35,6 +40,11 @@ LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
             "blake3_leaves": 0, "blake3_level": 0, "blake3_absorb": 0,
             "poseidon_leaves": 0, "poseidon_level": 0, "poseidon_absorb": 0,
             "eval_points": 0}
+# kernel name -> launches the host issued itself since the last reset (a
+# replayed program's launches are counted in LAUNCHES only)
+HOST_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# the launch counts of the captures in progress (innermost last)
+_recording: list = []
 
 # source name -> what nvcc printed when it was last built here (ptxas -v:
 # registers, shared memory and spills of every kernel)
@@ -76,7 +86,36 @@ _SIGNATURES = {
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = HOST_LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel `name` by its wrapper: a launch that ran, issued
+    by the host, or, while a program is being captured, one launch of each
+    of the program's replays."""
+    if _recording:
+        _recording[-1][name] += 1
+    else:
+        LAUNCHES[name] += 1
+        HOST_LAUNCHES[name] += 1
+
+
+@contextmanager
+def recording():
+    """Within it, the wrappers' launches go to the yielded counts and not to
+    LAUNCHES: a capture records what each replay of its graph launches."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _recording.append(counts)
+    try:
+        yield counts
+    finally:
+        _recording.pop()
+
+
+def add_replayed(counts: dict) -> None:
+    """A replay ran the launches its capture recorded."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
 
 
 def _nvcc() -> str:

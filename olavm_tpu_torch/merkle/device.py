@@ -112,7 +112,7 @@ def leaf_digests(cols: torch.Tensor, hasher_kind: str = "blake3"
     rc = kernels.lib("blake3").gl_blake3_leaves(
         cols.data_ptr(), out.data_ptr(), n, C, kernels.stream_ptr(cols))
     kernels.check(rc, "blake3_leaves")
-    kernels.LAUNCHES["blake3_leaves"] += 1
+    kernels.count("blake3_leaves")
     return out
 
 
@@ -159,7 +159,7 @@ def blake3_absorb(block: torch.Tensor, state, chunk0, flags, blen,
         None if chunk0 is None else chunk0.data_ptr(), n, W, int(fresh), meta,
         kernels.stream_ptr(block))
     kernels.check(rc, "blake3_absorb")
-    kernels.LAUNCHES["blake3_absorb"] += 1
+    kernels.count("blake3_absorb")
     return state
 
 
@@ -264,7 +264,7 @@ def compress_level(digests: torch.Tensor, hasher_kind: str = "blake3"
     rc = kernels.lib("blake3").gl_blake3_level(
         digests.data_ptr(), out.data_ptr(), n, kernels.stream_ptr(digests))
     kernels.check(rc, "blake3_level")
-    kernels.LAUNCHES["blake3_level"] += 1
+    kernels.count("blake3_level")
     return out
 
 

@@ -74,7 +74,7 @@ def _ntt_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     rc = kernels.lib("ntt").gl_ntt(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
                                    batch, log_n, kernels.stream_ptr(x))
     kernels.check(rc, "ntt")
-    kernels.LAUNCHES["ntt"] += 1
+    kernels.count("ntt")
     return out
 
 

@@ -22,6 +22,15 @@ and the evaluations K5; the Merkle hashing launches the blake3 kernels (K4
 and its absorb) or the Poseidon leaf, absorb and level kernels, as
 config.merkle_hasher says.
 
+The Z polys, each quotient class, the openings' power tables, the FRI
+composition and each fold and re-FFT are programs (utils/jitcache.py): on
+the card, CUDA graphs captured once per process and replayed, the launches
+of olavm_tpu's jitted programs. Every Fiat-Shamir challenge, and every
+value derived from one, enters a program through a device bank filled
+before the replay (quotient_bank, composition_bank, the fold's powers of
+beta), never as a host value inside it; the commits, the Merkle trees, the
+PoW grind, the query gathers and every host read stay outside.
+
 Given an oracle with a mesh (parallel/sharded.py ShardedOracle), every rank
 of the mesh runs this prove: the commits, the quotient's classes, the FRI
 folds and the FRI trees are split over the ranks where they divide them,
@@ -30,6 +39,7 @@ and every rank ends with the same proof.
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -42,10 +52,8 @@ from ..stark.cross_table_lookup import (
     CtlCheckVars,
     eval_cross_table_lookup_checks,
 )
-from ..stark.stark_base import (
-    eval_permutation_checks,
-    get_n_grand_product_challenge_sets,
-)
+from ..stark.stark_base import get_n_grand_product_challenge_sets
+from ..utils import jitcache
 from ..utils.bits import log2_strict
 from ..utils.timing import TimingTree
 
@@ -58,7 +66,14 @@ from ..ntt import ntt as dntt
 from ..parallel import sharded as psh
 from .challenger import Challenger
 from .config import StarkConfig
-from .ctl_device import ctl_data_device, permutation_z_polys_device
+from .ctl_device import (
+    DevChallenge,
+    column_sig,
+    ctl_data_device,
+    permutation_bank,
+    permutation_meta,
+    permutation_z_polys_device,
+)
 from .fri import (
     FriInitialTreeProof,
     FriProof,
@@ -87,6 +102,114 @@ _COMBINE_ROWS = 16
 # ---------------------------------------------------------------------------
 
 
+def _stark_key(stark) -> tuple:
+    """What a program key holds of a table's STARK: its class and its
+    instance state. Baked values: the trace generator's compress challenges
+    (ProgramStark and BitwiseStark hold them) reach eval_packed as host
+    ints, which its scalar products turn into fills or no product at all,
+    so they are part of the key: a program captured for one program's
+    compress challenge is never replayed for another's."""
+    return (type(stark).__module__, type(stark).__qualname__,
+            tuple(sorted(vars(stark).items())))
+
+
+def quotient_bank(stark, config, alphas, permutation_challenges, ctl_data):
+    """The quotient's scalar bank (olavm_tpu/stark/prover_device.py:112-141):
+    the alphas, then each distinct permutation challenge's beta and gamma,
+    then each CTL Z's; with the static metadata that reads it: per
+    permutation batch ((column pairs, offset), ...), and per CTL Z its
+    offset. Returns (bank values, permutation metadata, CTL offsets)."""
+    values = [int(a) for a in alphas]
+    perm_meta = ()
+    if permutation_challenges is not None:
+        pvals, offset = permutation_bank(permutation_challenges)
+        base = len(values)
+        perm_meta = permutation_meta(
+            stark, config, permutation_challenges,
+            {k: base + v for k, v in offset.items()})
+        values += pvals
+    ctl_offsets = []
+    for zc in ctl_data.zs_columns:
+        ctl_offsets.append(len(values))
+        values += [zc.challenge.beta, zc.challenge.gamma]
+    return values, perm_meta, tuple(ctl_offsets)
+
+
+def emit_perm(consumer, F, lv, zs_local, zs_next, bank, perm_meta,
+              num_permutation_zs: int) -> None:
+    """The permutation argument's constraints (stark_base's
+    eval_permutation_checks, permutation.rs:302-360), each challenge read
+    from the bank through DevChallenge (olavm_tpu/stark/prover_device.py:190)."""
+    for zi in range(num_permutation_zs):
+        consumer.constraint_first_row(F.sub(zs_local[zi], F.constant(1)))
+    for bi, instances in enumerate(perm_meta):
+        red_lhs, red_rhs = [], []
+        for column_pairs, off in instances:
+            chal = DevChallenge(bank[off], bank[off + 1])
+            red_lhs.append(chal.combine_ops(F, [lv[a] for a, _ in column_pairs]))
+            red_rhs.append(chal.combine_ops(F, [lv[b] for _, b in column_pairs]))
+        prod_lhs = red_lhs[0]
+        for t in red_lhs[1:]:
+            prod_lhs = F.mul(prod_lhs, t)
+        prod_rhs = red_rhs[0]
+        for t in red_rhs[1:]:
+            prod_rhs = F.mul(prod_rhs, t)
+        consumer.constraint(F.sub(F.mul(zs_next[bi], prod_rhs),
+                                  F.mul(zs_local[bi], prod_lhs)))
+
+
+def emit_ctls(consumer, lv, nv, zs_local, zs_next, bank, ctl_views,
+              ctl_offsets, num_permutation_zs: int) -> None:
+    """The CTL checks (eval_cross_table_lookup_checks) of each (columns,
+    filter) view, its challenge read from the bank
+    (olavm_tpu/stark/prover_device.py:210)."""
+    ctl_vars = [
+        CtlCheckVars(zs_local[num_permutation_zs + i],
+                     zs_next[num_permutation_zs + i],
+                     DevChallenge(bank[off], bank[off + 1]), columns, filt)
+        for i, ((columns, filt), off) in enumerate(zip(ctl_views, ctl_offsets))
+    ]
+    eval_cross_table_lookup_checks(lv, nv, ctl_vars, consumer)
+
+
+def quotient_class(stark, coeffs, zs_coeffs, cls, bank, *, num_alphas: int,
+                   perm_meta, ctl_views, ctl_offsets, num_permutation_zs: int
+                   ) -> torch.Tensor:
+    """(num_alphas, n) quotient values on one residue class: the class's
+    coset values of the trace and Z polynomials (coset FFTs of their
+    coefficients), the table's constraints (eval_packed, the permutation
+    checks, the CTL checks, in the host prover's order) and the Z_H
+    inverse. `cls` holds the class's constants [shift, c/n, c g^{-1}/n,
+    1/c] with c = shift^n - 1, and `bank` the challenges (quotient_bank),
+    so one program serves every class and every prove."""
+    device = coeffs.device
+    F = TorchOps(device)
+    degree = coeffs.shape[1]
+    degree_bits = log2_strict(degree)
+    gen = g.primitive_root_of_unity(degree_bits)
+    shift, c_n, c_n_last, zh_inv = cls[0], cls[1], cls[2], cls[3]
+    # selectors on shift*H, where x^n - 1 == shift^n - 1 is constant:
+    # L_0(x) = (x^n-1)/(n (x-1)); L_{n-1}(x) = (x^n-1) g^{-1}/(n (x-g^{-1}))
+    xs = gf.mul(gf.powers(gf.scalar(gen, device), degree, device), shift)
+    lagrange_first = gf.mul(c_n, gf.inv(gf.sub(xs, gf.scalar(1, device))))
+    z_last = gf.sub(xs, gf.scalar(g.inv(gen), device))
+    lagrange_last = gf.mul(c_n_last, gf.inv(z_last))
+
+    local = dntt.coset_fft(coeffs, shift)
+    zs_local = dntt.coset_fft(zs_coeffs, shift)
+    lv, nv = list(local), list(local.roll(-1, 1))
+    zl, zn = list(zs_local), list(zs_local.roll(-1, 1))
+
+    consumer = ConstraintConsumer(F, [bank[i] for i in range(num_alphas)],
+                                  z_last, lagrange_first, lagrange_last)
+    stark.eval_packed(lv, nv, consumer)
+    emit_perm(consumer, F, lv, zl, zn, bank, perm_meta, num_permutation_zs)
+    emit_ctls(consumer, lv, nv, zl, zn, bank, ctl_views, ctl_offsets,
+              num_permutation_zs)
+    return torch.stack([gf.mul(acc.expand(degree), zh_inv)
+                        for acc in consumer.accumulators()])
+
+
 def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
                                   permutation_challenges, ctl_data, alphas,
                                   degree_bits, num_permutation_zs, mesh=None
@@ -95,17 +218,17 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
 
     The quotient coset g*W (|W| = n << qdb) splits into 2^qdb residue
     classes j = k * 2^qdb + r; class r is the coset (g * w^r) * H, its
-    values one coset FFT of the coefficients on n points (the values at
-    p(g w^r w_n^k) that the strided slice lde[:, r * step :: 2^rate] of the
-    LDE holds), and the "next row" of a point stays inside its class as a
-    roll by one. Each class runs the
-    table's constraints (eval_packed, permutation checks, CTL checks, in the
-    host prover's order) in one pass. With a mesh whose ranks divide the
-    classes, each rank runs its contiguous classes and one all_gather gives
-    every rank all of them (olavm_tpu/stark/prover_device.py:353-401).
-    Returns the (num_alphas * qdf, n) quotient chunks' coefficients."""
+    values one coset FFT of the coefficients on n points, and the "next
+    row" of a point stays inside its class as a roll by one. Each class is
+    one replay of the table's class program (quotient_class), keyed like
+    olavm_tpu's "qvals"/"qfin" programs by the table's shapes and static
+    metadata (olavm_tpu/stark/prover_device.py:403-416), with the class's
+    constants and the challenge bank as inputs. With a mesh whose ranks
+    divide the classes, each rank replays its contiguous classes and one
+    all_gather, outside the programs, gives every rank all of them
+    (olavm_tpu/stark/prover_device.py:353-401). Returns the
+    (num_alphas * qdf, n) quotient chunks' coefficients."""
     device = trace_batch.coeffs.device
-    F = TorchOps(device)
     degree = 1 << degree_bits
     qdf = stark.quotient_degree_factor()
     qdb = qdf.bit_length() - 1
@@ -114,50 +237,30 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
     assert qdb <= config.fri_config.rate_bits
     size = degree << qdb
 
+    values, perm_meta, ctl_offsets = quotient_bank(
+        stark, config, alphas, permutation_challenges, ctl_data)
+    bank = gf.from_u64(values, device)
+    ctl_views = [(zc.columns, zc.filter_column) for zc in ctl_data.zs_columns]
+    key = ("qclass", _stark_key(stark), tuple(trace_batch.coeffs.shape),
+           tuple(zs_batch.coeffs.shape), len(alphas), num_permutation_zs,
+           perm_meta,
+           tuple((tuple(column_sig(c) for c in cols), column_sig(filt))
+                 for cols, filt in ctl_views), ctl_offsets)
+    program = jitcache.cached_jit(key, functools.partial(
+        quotient_class, stark, num_alphas=len(alphas), perm_meta=perm_meta,
+        ctl_views=ctl_views, ctl_offsets=ctl_offsets,
+        num_permutation_zs=num_permutation_zs))
+
     w = g.primitive_root_of_unity(degree_bits + qdb)
-    gen = g.primitive_root_of_unity(degree_bits)
-    g_last = g.inv(gen)  # gen^{n-1}
+    g_last = g.inv(g.primitive_root_of_unity(degree_bits))  # gen^{n-1}
     n_inv = g.inv(degree)
-    alphas_dev = [gf.scalar(a, device) for a in alphas]
-    gen_pows = gf.powers(gen, degree, device)
-    one = gf.scalar(1, device)
 
     def class_values(r: int) -> torch.Tensor:
-        """(num_alphas, n) quotient values on residue class r."""
         shift = g.mul(g.MULTIPLICATIVE_GROUP_GENERATOR, pow(w, r, g.P))
-        # selectors on shift*H, where x^n - 1 == shift^n - 1 is constant:
-        # L_0(x) = (x^n-1)/(n (x-1)); L_{n-1}(x) = (x^n-1) g^{-1}/(n (x-g^{-1}))
-        xs = gf.mul(gen_pows, gf.scalar(shift, device))
         c = g.sub(pow(shift, degree, g.P), 1)
         c_n = g.mul(c, n_inv)
-        lagrange_first = gf.mul(gf.scalar(c_n, device),
-                                gf.inv(gf.sub(xs, one)))
-        z_last = gf.sub(xs, gf.scalar(g_last, device))
-        lagrange_last = gf.mul(gf.scalar(g.mul(c_n, g_last), device),
-                               gf.inv(z_last))
-
-        local = dntt.coset_fft(trace_batch.coeffs, shift)
-        zs_local = dntt.coset_fft(zs_batch.coeffs, shift)
-        lv, nv = list(local), list(local.roll(-1, 1))
-        zl, zn = list(zs_local), list(zs_local.roll(-1, 1))
-
-        consumer = ConstraintConsumer(F, alphas_dev, z_last, lagrange_first,
-                                      lagrange_last)
-        stark.eval_packed(lv, nv, consumer)
-        if permutation_challenges is not None:
-            eval_permutation_checks(
-                stark, config, lv, nv, zl[:num_permutation_zs],
-                zn[:num_permutation_zs], permutation_challenges, consumer)
-        ctl_vars = [
-            CtlCheckVars(zl[num_permutation_zs + i], zn[num_permutation_zs + i],
-                         zc.challenge, zc.columns, zc.filter_column)
-            for i, zc in enumerate(ctl_data.zs_columns)
-        ]
-        eval_cross_table_lookup_checks(lv, nv, ctl_vars, consumer)
-
-        zh_inv = gf.scalar(g.inv(c), device)
-        return torch.stack([gf.mul(acc.expand(degree), zh_inv)
-                            for acc in consumer.accumulators()])
+        cls = gf.from_u64([shift, c_n, g.mul(c_n, g_last), g.inv(c)], device)
+        return program(trace_batch.coeffs, zs_batch.coeffs, cls, bank)
 
     n_classes = 1 << qdb
     if mesh is not None and n_classes % psh.coords(mesh)[1] == 0:
@@ -172,6 +275,7 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
     quotient_values = classes.permute(1, 2, 0).reshape(len(alphas), size)
     coeffs = dntt.coset_ifft(quotient_values)
     limit = degree * qdf
+    # the divisibility check's host read stays outside the programs
     if limit < size and bool((coeffs[:, limit:] != 0).any()):
         raise ValueError("quotient not divisible by Z_H — constraint violated")
     # split into degree-n chunks (prover.rs:463-478), alpha-major
@@ -183,21 +287,32 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
 # ---------------------------------------------------------------------------
 
 
-def _ext_power_table(z, n: int, device) -> gfe.GFE:
-    """Device [1, z, ..., z^{n-1}] for a host extension point z, by
-    log-doubling: the block [0, m) times z^m, computed on the host, gives
-    [m, 2m) (gfe.powers would square a 0-dim tensor on the card, ~2,000
-    launches at n = 2^20)."""
+def ext_powers(zb: torch.Tensor, n: int) -> torch.Tensor:
+    """(2, n) re and im of [1, z, ..., z^{n-1}] for the extension point z
+    held by the (2,) device tensor zb, by log-doubling: the block [0, m)
+    times z^m gives [m, 2m), z^m squared on the device (olavm_tpu's
+    "extpows" program, olavm_tpu/stark/prover_device.py:461)."""
+    device = zb.device
     out = gfe.ones((1,), device)
-    zm = ge.t(z)  # z^length
+    zm = gfe.GFE(zb[0], zb[1])  # z^length
     length = 1
     while length < n:
         step = min(length, n - length)
-        nxt = gfe.mul(out[:step], _ext_scalar(zm, device))
+        nxt = gfe.mul(out[:step], zm)
         out = gfe.GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
-        zm = ge.t_mul(zm, zm)
         length += step
-    return out[:n]
+        if length < n:
+            zm = gfe.mul(zm, zm)
+    return torch.stack([out.re[:n], out.im[:n]])
+
+
+def _ext_power_table(z, n: int, device) -> gfe.GFE:
+    """Device [1, z, ..., z^{n-1}] for a host extension point z (a
+    challenge: it enters the program as an input)."""
+    prog = jitcache.cached_jit(("extpows", n),
+                               functools.partial(ext_powers, n=n))
+    out = prog(gf.from_u64(np.asarray(ge.t(z), dtype=np.uint64), device))
+    return gfe.GFE(out[0], out[1])
 
 
 def _openings_device(trace_batch, zs_batch, quotient_batch,
@@ -299,12 +414,6 @@ class _DeviceExtTree:
             gather_paths_dev(self.levels, coset_indices, num_path_levels))
 
 
-def _ext_scalar(v, device) -> gfe.GFE:
-    """Host extension value -> 0-dim GFE."""
-    v = ge.t(v)
-    return gfe.GFE(gf.scalar(v[0], device), gf.scalar(v[1], device))
-
-
 def prove_openings_device(instance, openings_batches, oracles, challenger,
                           config, degree_bits, mesh=None) -> FriProof:
     """PolynomialBatch::prove_openings + fri_proof (fri/oracle.rs:167-243,
@@ -315,59 +424,97 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
     polynomials have n of them) and takes one coset LDE of its re and im
     parts: by linearity the values the sum over LDE rows would give, at 1/8
     of the arithmetic and with no LDE kept. One coset iNTT gives the
-    coefficients to fold."""
+    coefficients to fold. The whole composition is one program (olavm_tpu's
+    "horner_lde", "friquot", "frimulx" and "fri_ifft" programs,
+    olavm_tpu/stark/prover_device.py:722-830), keyed by the batches'
+    structure; alpha's powers, the points and the opened values, all
+    derived from challenges, are its bank (composition_bank)."""
     device = oracles[0].coeffs.device
-    fri_config = config.fri_config
-    rate_bits = fri_config.rate_bits
+    rate_bits = config.fri_config.rate_bits
     alpha = ge.t(challenger.get_extension_challenge())
     reduced = [_reduce_with_alpha(batch, alpha) for batch in openings_batches]
-
-    size_bits = degree_bits + rate_bits
-    n = 1 << size_bits
-    xs = gf.mul(gf.powers(g.primitive_root_of_unity(size_bits), n, device),
-                gf.scalar(g.MULTIPLICATIVE_GROUP_GENERATOR, device))
-
-    final = gfe.zeros((n,), device)
-    for batch, y in zip(instance.batches, reduced):
-        comp, pw = _combine_coeffs(batch.polynomials, oracles, alpha, device)
-        v = dntt.coset_lde(torch.stack([comp.re, comp.im]), rate_bits)
-        num = gfe.sub(gfe.GFE(v[0], v[1]), _ext_scalar(y, device))
-        den = gfe.sub(gfe.from_base(xs), _ext_scalar(batch.point, device))
-        q = gfe.mul(num, gfe.inv(den))
-        # pw is now alpha^{len(batch)}: shift the earlier batches past it
-        final = gfe.add(gfe.mul(final, _ext_scalar(pw, device)), q)
-
-    # degree bump F <- X * F (plonky2 PR #436)
-    values = gfe.mul_base(final, xs)
-    c = dntt.coset_ifft(torch.stack([values.re, values.im]))
-    coeffs = gfe.GFE(c[0], c[1])
-    return fri_proof_device(oracles, coeffs, values, challenger, fri_config,
+    plan, values = composition_bank(instance, alpha, reduced)
+    key = ("fricomp", degree_bits, rate_bits, plan,
+           tuple(tuple(o.coeffs.shape) for o in oracles))
+    prog = jitcache.cached_jit(key, functools.partial(
+        fri_composition, plan=plan, rate_bits=rate_bits))
+    v_re, v_im, c_re, c_im = prog(
+        *[o.coeffs for o in oracles],
+        gf.from_u64(np.asarray(values, dtype=np.uint64), device))
+    return fri_proof_device(oracles, gfe.GFE(c_re, c_im),
+                            gfe.GFE(v_re, v_im), challenger, config.fri_config,
                             degree_bits, config.merkle_hasher, mesh)
 
 
-def _combine_coeffs(polynomials, oracles, alpha, device):
-    """sum_i alpha^i p_i over a FRI batch's polynomials (oracle, index), on
-    their coefficients -> ((n,) GFE, alpha^len). A run of consecutive
-    polynomials of one oracle, at most 16 at a time, is one product with
-    the column of its alpha powers and a pairwise sum (modular addition is
-    exact, so the order of the terms does not change the result)."""
-    runs = []  # (oracle, first index, host alpha powers)
-    pw = (1, 0)
-    for oi, pi in polynomials:
-        if (runs and runs[-1][0] == oi and runs[-1][1] + len(runs[-1][2]) == pi
-                and len(runs[-1][2]) < _COMBINE_ROWS):
-            runs[-1][2].append(pw)
-        else:
-            runs.append((oi, pi, [pw]))
-        pw = ge.t_mul(pw, alpha)
-    comp = None
-    for oi, p0, pws in runs:
-        rows = oracles[oi].coeffs[p0:p0 + len(pws)]
-        cols = gf.from_u64(np.asarray(pws, dtype=np.uint64).T.copy(), device)
-        term = gfe.GFE(_sum_rows(gf.mul(rows, cols[0][:, None])),
-                       _sum_rows(gf.mul(rows, cols[1][:, None])))
-        comp = term if comp is None else gfe.add(comp, term)
-    return comp, pw
+def composition_bank(instance, alpha, reduced) -> tuple[tuple, list[int]]:
+    """The FRI composition's static plan and its bank. Per batch: its runs
+    of consecutive polynomials of one oracle, at most 16 each, as (oracle,
+    first index, count, bank offset of the run's alpha powers: count re
+    parts, then count im parts), and the bank offset of the batch's point,
+    its reduced opening y and alpha^{len(batch)}, re and im each."""
+    plan, values = [], []
+    for batch, y in zip(instance.batches, reduced):
+        runs = []  # [oracle, first index, host alpha powers]
+        pw = (1, 0)
+        for oi, pi in batch.polynomials:
+            if (runs and runs[-1][0] == oi
+                    and runs[-1][1] + len(runs[-1][2]) == pi
+                    and len(runs[-1][2]) < _COMBINE_ROWS):
+                runs[-1][2].append(pw)
+            else:
+                runs.append([oi, pi, [pw]])
+            pw = ge.t_mul(pw, alpha)
+        batch_runs = []
+        for oi, p0, pws in runs:
+            batch_runs.append((oi, p0, len(pws), len(values)))
+            values += [p[0] for p in pws] + [p[1] for p in pws]
+        plan.append((tuple(batch_runs), len(values)))
+        for v in (ge.t(batch.point), ge.t(y), pw):
+            values += [int(v[0]), int(v[1])]
+    return tuple(plan), values
+
+
+def fri_composition(*inputs, plan, rate_bits: int):
+    """The composition's values and coefficients over the LDE coset, as
+    (values re, values im, coefficients re, coefficients im); `inputs` are
+    the oracles' (C, n) coefficients and the bank (composition_bank)."""
+    *oracle_coeffs, bank = inputs
+    device = bank.device
+    size = oracle_coeffs[0].shape[1] << rate_bits
+    size_bits = log2_strict(size)
+    shift = g.MULTIPLICATIVE_GROUP_GENERATOR
+    xs = gf.mul(gf.powers(gf.scalar(g.primitive_root_of_unity(size_bits),
+                                    device), size, device),
+                gf.scalar(shift, device))
+
+    def ext(off):
+        return gfe.GFE(bank[off], bank[off + 1])
+
+    final = gfe.zeros((size,), device)
+    for runs, off in plan:
+        # C_b = sum_i alpha^i p_i: a run is one product with the column of
+        # its alpha powers and a pairwise sum (modular addition is exact,
+        # so the order of the terms does not change the result)
+        comp = None
+        for oi, p0, k, roff in runs:
+            rows = oracle_coeffs[oi][p0:p0 + k]
+            term = gfe.GFE(
+                _sum_rows(gf.mul(rows, bank[roff:roff + k][:, None])),
+                _sum_rows(gf.mul(rows, bank[roff + k:roff + 2 * k][:, None])))
+            comp = term if comp is None else gfe.add(comp, term)
+        v = dntt.coset_lde(torch.stack([comp.re, comp.im]), rate_bits,
+                           gf.scalar(shift, device))
+        num = gfe.sub(gfe.GFE(v[0], v[1]), ext(off + 2))
+        den = gfe.sub(gfe.from_base(xs), ext(off))
+        q = gfe.mul(num, gfe.inv(den))
+        # alpha^{len(batch)} shifts the earlier batches past this one
+        final = gfe.add(gfe.mul(final, ext(off + 4)), q)
+
+    # degree bump F <- X * F (plonky2 PR #436)
+    values = gfe.mul_base(final, xs)
+    c = dntt.scale_by_powers(dntt.intt(torch.stack([values.re, values.im])),
+                             gf.scalar(g.inv(shift), device))
+    return values.re, values.im, c[0], c[1]
 
 
 def _sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -382,33 +529,59 @@ def _sum_rows(x: torch.Tensor) -> torch.Tensor:
 
 def fri_fold(coeffs: gfe.GFE, beta, arity: int, mesh=None) -> gfe.GFE:
     """One FRI fold (olavm_tpu/stark/prover_device.py:887-921): coeffs[k * arity + i] ->
-    sum_i coeffs[k * arity + i] * beta^i for a host extension beta. Plain
-    torch in this version (its products launch K3 on the card). With a mesh
-    whose ranks divide the folded rows, each rank folds its contiguous rows
-    and one all_gather gives every rank all of them
-    (olavm_tpu/stark/prover_device.py:923-943)."""
+    sum_i coeffs[k * arity + i] * beta^i for a host extension beta, a
+    challenge: beta's powers, computed on the host, are the fold program's
+    bank (olavm_tpu's "frifold" program, :943, one per (m, arity)). With a
+    mesh whose ranks divide the folded rows, each rank folds its contiguous
+    rows and one all_gather, outside the program, gives every rank all of
+    them (olavm_tpu/stark/prover_device.py:923-943)."""
+    beta = ge.t(beta)
+    pws = [(1, 0)]
+    for _ in range(1, arity):
+        pws.append(ge.t_mul(pws[-1], beta))
+    bpows = gf.from_u64(np.asarray(pws, dtype=np.uint64).T.copy(),
+                        coeffs.re.device)
     rows = coeffs.shape[0] // arity
+
+    def fold(re, im):
+        prog = jitcache.cached_jit(("frifold", re.shape[0], arity), fold_stacked)
+        return prog(re, im, bpows)
+
     if mesh is not None and rows % psh.coords(mesh)[1] == 0:
         out = psh.shard_map_cat(
-            mesh, "fold", rows, lambda lo, hi: _fold_stacked(
-                coeffs[lo * arity:hi * arity], beta, arity), dim=1)
+            mesh, "fold", rows, lambda lo, hi: fold(
+                coeffs.re[lo * arity:hi * arity],
+                coeffs.im[lo * arity:hi * arity]), dim=1)
         return gfe.GFE(out[0], out[1])
-    folded = _fold_stacked(coeffs, beta, arity)
+    folded = fold(coeffs.re, coeffs.im)
     return gfe.GFE(folded[0], folded[1])
 
 
-def _fold_stacked(coeffs: gfe.GFE, beta, arity: int) -> torch.Tensor:
-    """fri_fold on one device, as one (2, m / arity) tensor of re and im."""
-    device = coeffs.re.device
-    re = coeffs.re.reshape(-1, arity)
-    im = coeffs.im.reshape(-1, arity)
+def fold_stacked(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
+                 ) -> torch.Tensor:
+    """fri_fold of (m,) re and im parts by the (2, arity) re and im parts of
+    beta's powers, as one (2, m / arity) tensor of re and im."""
+    arity = bpows.shape[1]
+    re = re.reshape(-1, arity)
+    im = im.reshape(-1, arity)
     acc = gfe.GFE(re[:, 0], im[:, 0])
-    bp = (1, 0)
     for i in range(1, arity):
-        bp = ge.t_mul(bp, beta)
         acc = gfe.add(acc, gfe.mul(gfe.GFE(re[:, i], im[:, i]),
-                                   _ext_scalar(bp, device)))
+                                   gfe.GFE(bpows[0, i], bpows[1, i])))
     return torch.stack([acc.re, acc.im])
+
+
+def fri_refft(coeffs: gfe.GFE, shift: int) -> gfe.GFE:
+    """The folded polynomial's values on the next coset, shift * H (one
+    coset FFT of its re and im parts): olavm_tpu's "fri_refft" program
+    (olavm_tpu/stark/prover_device.py:954), keyed by the size and the
+    shift, a constant of the round."""
+    def refft(re, im):
+        v = dntt.coset_fft(torch.stack([re, im]), gf.scalar(shift, re.device))
+        return v[0], v[1]
+
+    prog = jitcache.cached_jit(("fri_refft", coeffs.shape[0], shift), refft)
+    return gfe.GFE(*prog(coeffs.re, coeffs.im))
 
 
 def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
@@ -433,8 +606,7 @@ def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
         beta = ge.t(challenger.get_extension_challenge())
         coeffs = fri_fold(coeffs, beta, arity, mesh)
         shift = pow(shift, arity, g.P)
-        v = dntt.coset_fft(torch.stack([coeffs.re, coeffs.im]), shift)
-        values = gfe.GFE(v[0], v[1])
+        values = fri_refft(coeffs, shift)
 
     final_len = coeffs.shape[0] >> config.rate_bits
     final_coeffs = gfe.to_u64_pair(coeffs[:final_len])
@@ -571,7 +743,8 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
                              public_values: PublicValues | None = None,
                              timing: TimingTree | None = None, *,
                              device="cuda",
-                             oracle=DevicePolynomialBatch) -> AllProof:
+                             oracle=DevicePolynomialBatch,
+                             programs: bool = True) -> AllProof:
     """Device analogue of prover.prove_with_traces: the same challenger
     transcript, every heavy phase on `device`. trace_poly_values: per table
     (num_cols, degree) uint64 host arrays. The prove runs on the card unless
@@ -581,7 +754,20 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
     prover, stark/prover.py, runs it. `oracle` makes the commitments; the
     sharded prover (parallel/sharded.py) passes a ShardedOracle, whose mesh
     also shards the quotient and FRI, and every rank's table proofs are
-    then checked to agree."""
+    then checked to agree. On the card the grand products, the quotient's
+    classes, the openings' power tables and the FRI composition, folds and
+    re-FFTs run as programs (utils/jitcache.py: CUDA graphs captured at
+    their first use in the process and replayed after); `programs=False`
+    issues them op by op instead (the counterpart of olavm_tpu's
+    OLAVM_NO_EXPORT_CACHE), with the same proof."""
+    with jitcache.enabled(programs):
+        return _prove_with_traces_device(ola_stark, config, trace_poly_values,
+                                         public_values, timing, device, oracle)
+
+
+def _prove_with_traces_device(ola_stark, config, trace_poly_values,
+                              public_values, timing, device, oracle
+                              ) -> AllProof:
     timing = timing or TimingTree()
     device = torch.device(device)
     dmerkle.check_hasher(config.merkle_hasher)

@@ -1,0 +1,268 @@
+"""The device prover's compiled programs as CUDA graphs; counterpart of
+olavm_tpu/utils/jitcache.py and of olavm_tpu/stark/oracle_device.py `_jit`,
+the layer through which the JAX device prover runs each step as one
+compiled program.
+
+`cached_jit(key, fn)` gives the program of `key`: a function of device
+tensors, returning a tensor or a tuple of tensors, whose launches are the
+same for every call with the same key and input shapes. `key` must fully
+determine what `fn` launches, as `olavm_tpu`'s key does (the site's tag,
+shapes, static metadata): every value that changes between proves (a
+Fiat-Shamir challenge, anything derived from one, a table's data) enters as
+an input tensor, never as a host value that a capture would bake into a
+kernel's arguments or a fill.
+
+On a card, the first call of a program with given input shapes runs `fn`
+eagerly (its warm-up: it loads the kernel libraries and fills the twiddle
+tables before any capture, and its result is the call's result), then
+captures `fn` once more into a CUDA graph, reading its inputs from static
+buffers. Every later call copies its inputs into those buffers and replays
+the graph. A capture that fails raises with the key; nothing falls back to
+running the program eagerly on the card. On the CPU, or inside `enabled(False)`
+(prove_with_traces_device's `programs=False`), a program is `fn` called
+directly.
+
+Memory. A graph reads its i-th input from a view of one buffer per (input
+position, dtype, device), shared by every program, and writes its i-th
+output into a view of another (the copy is the graph's last node); a
+buffer grows, as a new buffer that later captures take, when an input or
+output outgrows it. A replay fills its input views just before it runs and
+copies its outputs out just after, and replays run one at a time on the
+current stream, so the buffers hold about the largest table's trace, Z and
+quotient coefficients once, not once per program, table or CTL view.
+Every graph allocates its working memory from one pool per device, and
+nothing stays live in the pool between replays, so the pool holds about
+the largest program's working set, not the sum over the programs. A replay
+returns copies of its outputs, which the caller owns. `clear()` drops every
+program, buffer and pool (between sizes, say).
+
+Where a capture goes wrong, and where each case is handled:
+- baked values: a host int that reaches a fill or a kernel argument inside
+  `fn` is frozen into the graph; the device prover passes the challenges as
+  banks (stark/prover_device.py quotient_bank, composition_bank, fri_fold;
+  stark/ctl_device.py DevChallenge) and keys the values that stay host
+  ints (the STARK's compress challenge: prover_device._stark_key);
+- fresh tensors: each prove makes new trace, coefficient and Z tensors;
+  a graph reads only its buffers, which every replay fills;
+- host syncs: `.item()`, `bool(tensor)`, `torch.nonzero`, a pageable copy
+  or a library's first load inside `fn` fails the capture (it raises); the
+  warm-up loads the libraries and builds the module caches first, and the
+  host reads of the prover (z_last, the divisibility check) stay outside;
+- streams: the kernels launch on torch.cuda.current_stream, which the
+  capture sets to its own; the nvcc-built libraries link cudart statically
+  and their launches are captured (checked on the card);
+- ranks: the sharded prover's collectives stay outside the programs, and
+  every rank captures its own.
+
+olavm_tpu's module exports traced programs to disk, so that later processes
+skip the trace. This cache lives in memory only: a CUDA graph holds device
+addresses and cannot outlive its process.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import ctypes
+import time
+from contextlib import contextmanager
+
+import torch
+
+from .. import kernels
+
+# key -> Program
+_PROGRAMS: dict = {}
+# ("in" or "out", position, dtype, device) -> the largest buffer so far
+_BUFFERS: dict = {}
+# device -> the graph memory pool that every program on it shares
+_POOLS: dict = {}
+_ENABLED = contextvars.ContextVar("olavm_tpu_torch_programs", default=True)
+
+
+@contextmanager
+def enabled(flag: bool):
+    """Run programs as CUDA graphs (True, the default) or call their
+    functions eagerly (False) within the block."""
+    token = _ENABLED.set(bool(flag))
+    try:
+        yield
+    finally:
+        _ENABLED.reset(token)
+
+
+class _Graph:
+    """One captured graph of a program: the buffer views of its inputs and
+    outputs, and what its capture recorded."""
+
+    def __init__(self, graph, slots, outputs, launches, nodes, seconds,
+                 pool_bytes):
+        self.graph = graph
+        self.slots = slots
+        self.outputs = outputs
+        self.launches = launches
+        self.nodes = nodes
+        self.capture_seconds = seconds
+        self.pool_bytes = pool_bytes
+        self.replays = 0
+
+    def replay(self, inputs):
+        for slot, t in zip(self.slots, inputs):
+            slot.copy_(t)
+        self.graph.replay()
+        kernels.add_replayed(self.launches)
+        self.replays += 1
+        return tuple(t.clone() for t in self.outputs)
+
+
+class Program:
+    """The program of one key: a graph per input signature on the card, the
+    function itself elsewhere."""
+
+    def __init__(self, key, fn):
+        self.key = key
+        self.fn = fn
+        self.graphs: dict = {}
+
+    def __call__(self, *inputs: torch.Tensor):
+        device = inputs[0].device
+        if device.type != "cuda" or not _ENABLED.get():
+            return self.fn(*inputs)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"program {self.key!r} called inside a capture")
+        sig = (device, tuple((tuple(t.shape), t.dtype) for t in inputs))
+        entry = self.graphs.get(sig)
+        if entry is None:
+            out = self.fn(*inputs)  # the warm-up
+            self.graphs[sig] = self._capture(device, inputs, out)
+            return out
+        outs = entry.replay(inputs)
+        return outs if self._returns_tuple else outs[0]
+
+    def _capture(self, device, inputs, warm_out) -> _Graph:
+        self._returns_tuple = isinstance(warm_out, (tuple, list))
+        warm = tuple(warm_out) if self._returns_tuple else (warm_out,)
+        slots = [_view("in", i, t) for i, t in enumerate(inputs)]
+        outputs = [_view("out", i, t) for i, t in enumerate(warm)]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # torch.cuda.graph empties the cache itself: empty it first, so that
+        # the growth of the reserved memory is the pool's
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.device(device), kernels.recording() as launches:
+                # thread_local: a sync or pageable copy in this thread fails
+                # the capture, while the process group's watchdog thread
+                # may go on querying its events
+                with torch.cuda.graph(graph, pool=_pool(device),
+                                      capture_error_mode="thread_local"):
+                    out = self.fn(*slots)
+                    out = tuple(out) if self._returns_tuple else (out,)
+                    if [o.shape for o in out] != [o.shape for o in warm]:
+                        raise RuntimeError("the capture's outputs differ in "
+                                           "shape from the warm-up's")
+                    for view, o in zip(outputs, out):
+                        view.copy_(o)
+                    del out
+            nodes = _graph_nodes(graph)
+            graph.instantiate()
+        except Exception as e:
+            raise RuntimeError(
+                f"capture of program {self.key!r} failed: {e}") from e
+        return _Graph(graph, slots, outputs, launches, nodes,
+                      time.perf_counter() - t0,
+                      torch.cuda.memory_reserved(device) - reserved)
+
+
+def _view(kind: str, i: int, t: torch.Tensor) -> torch.Tensor:
+    """A contiguous view of t's shape at the start of the buffer of (kind,
+    position i, t's dtype and device), which grows to hold it."""
+    numel = t.numel()
+    key = (kind, i, t.dtype, t.device)
+    buf = _BUFFERS.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _BUFFERS[key] = torch.empty(max(numel, 1), dtype=t.dtype,
+                                          device=t.device)
+    return buf[:numel].view(t.shape)
+
+
+def _pool(device):
+    if device not in _POOLS:
+        _POOLS[device] = torch.cuda.graph_pool_handle()
+    return _POOLS[device]
+
+
+def _graph_nodes(graph) -> int:
+    """The captured graph's node count (libcuda's cuGraphGetNodes)."""
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t()
+    rc = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                 None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA error {rc}")
+    return n.value
+
+
+def cached_jit(key, fn) -> Program:
+    """The program of `key` (made from `fn` at the key's first use)."""
+    if key not in _PROGRAMS:
+        _PROGRAMS[key] = Program(key, fn)
+    return _PROGRAMS[key]
+
+
+def stats() -> dict:
+    """Per key (its repr): captures, replays, capture seconds, graph nodes,
+    the bytes its captures added to the shared pool, the kernel launches of
+    one replay (summed over the key's input shapes) and those of all its
+    replays."""
+    out = {}
+    for key, prog in _PROGRAMS.items():
+        graphs = list(prog.graphs.values())
+        out[repr(key)] = {
+            "tag": key[0] if isinstance(key, tuple) else key,
+            "captures": len(graphs),
+            "replays": sum(g.replays for g in graphs),
+            "capture_seconds": sum(g.capture_seconds for g in graphs),
+            "nodes": sum(g.nodes for g in graphs),
+            "pool_bytes": sum(g.pool_bytes for g in graphs),
+            "launches": sum(sum(g.launches.values()) for g in graphs),
+            "replayed_launches": sum(g.replays * sum(g.launches.values())
+                                     for g in graphs),
+        }
+    return out
+
+
+def buffer_bytes() -> int:
+    """Device bytes held by the input and output buffers of the graphs
+    (those outgrown included)."""
+    held = {}
+    for prog in _PROGRAMS.values():
+        for g in prog.graphs.values():
+            for t in (*g.slots, *g.outputs):
+                st = t.untyped_storage()
+                held[st.data_ptr()] = st.nbytes()
+    return sum(held.values())
+
+
+def pool_bytes() -> int:
+    """Device bytes reserved by the graphs' shared pools (the allocations
+    that only graph replays use)."""
+    if not _POOLS:
+        return 0
+    pools = {tuple(p) for p in _POOLS.values()}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
+
+
+def clear() -> None:
+    """Drop every program, graph, static buffer and pool, and return their
+    device memory to the card."""
+    for prog in _PROGRAMS.values():
+        for g in prog.graphs.values():
+            g.graph.reset()
+    _PROGRAMS.clear()
+    _BUFFERS.clear()
+    _POOLS.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()

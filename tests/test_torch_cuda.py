@@ -399,3 +399,142 @@ def test_streamed_commit_on_card_equals_cpu(dev, hasher, C):
     for a, b in zip(on_card.eval_at_ext_rows(rows[0]),
                     on_cpu.eval_at_ext_rows(rows[1])):
         np.testing.assert_array_equal(a, b)
+
+
+def _toy_programs(dev):
+    """(key, program, first inputs) of each program kind in a ToySystem
+    prove on the card, which captures them."""
+    from olavm_tpu_torch.stark import config as tconfig
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
+    from olavm_tpu_torch.utils import jitcache
+
+    from test_stark_framework import ToySystem, build_traces
+
+    seen = {}
+    real = jitcache.cached_jit
+
+    def spy(key, fn):
+        prog = real(key, fn)
+
+        def call(*inputs):
+            seen.setdefault(key[0], (key, prog, inputs))
+            return prog(*inputs)
+
+        return call
+
+    jitcache.clear()
+    jitcache.cached_jit = spy
+    try:
+        prove_with_traces_device(ToySystem(), tconfig.StarkConfig(),
+                                 build_traces(64), device=dev)
+    finally:
+        jitcache.cached_jit = real
+    return seen
+
+
+def test_program_replay_with_a_second_bank_equals_the_eager_run(dev):
+    """Each program kind, captured by a prove, replayed with a second
+    challenge bank: the same values as its function run eagerly with that
+    bank, and the same kernel launches, none of them issued by the host."""
+    from olavm_tpu_torch.utils import jitcache
+
+    programs = _toy_programs(dev)
+    assert {"qclass", "ctlz", "permz", "frifold", "fricomp",
+            "extpows"} <= set(programs)
+    for tag, (key, prog, inputs) in programs.items():
+        *data, bank = inputs
+        bank2 = convert.from_u64(_rand(tuple(bank.shape), 99), dev)
+        replays = jitcache.stats()[repr(key)]["replays"]
+        kernels.reset_launches()
+        got = prog(*data, bank2)
+        replayed = dict(kernels.LAUNCHES)
+        assert jitcache.stats()[repr(key)]["replays"] == replays + 1, tag
+        assert not any(kernels.HOST_LAUNCHES.values()), tag
+        kernels.reset_launches()
+        with jitcache.enabled(False):
+            want = prog(*data, bank2)
+        assert dict(kernels.LAUNCHES) == replayed, tag
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), tag
+    jitcache.clear()
+
+
+def test_toy_proof_with_programs_equals_eager_and_host(dev):
+    from olavm_tpu.stark import config as jconfig
+    from olavm_tpu.stark.prover import prove_with_traces
+    from olavm_tpu.stark.serialization import serialize_all_proof
+    from olavm_tpu_torch.stark import config as tconfig
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
+    from olavm_tpu_torch.stark.serialization import serialize_all_proof as tser
+    from olavm_tpu_torch.utils import jitcache
+
+    from test_stark_framework import ToySystem, build_traces
+
+    traces = build_traces(64)
+    want = serialize_all_proof(
+        prove_with_traces(ToySystem(), jconfig.StarkConfig(), traces))
+    jitcache.clear()
+    for programs in (True, True, False):
+        proof = prove_with_traces_device(ToySystem(), tconfig.StarkConfig(),
+                                         traces, device=dev,
+                                         programs=programs)
+        assert tser(proof) == want
+    stats = jitcache.stats().values()
+    assert sum(s["captures"] for s in stats) > 0
+    assert sum(s["replays"] for s in stats) > 0
+    jitcache.clear()
+
+
+def test_programs_follow_a_stark_constant_that_changes(dev):
+    """A table whose constraints scale a column by a constant of the STARK
+    object (as ProgramStark and BitwiseStark use the trace generator's
+    compress challenge): proves with two values of it, in one process with
+    the programs, both verify, each with its own quotient program."""
+    from olavm_tpu_torch.stark.config import FriConfig, StarkConfig
+    from olavm_tpu_torch.stark.cross_table_lookup import (
+        Column, CrossTableLookup, TableWithColumns)
+    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
+    from olavm_tpu_torch.stark.stark_base import Stark
+    from olavm_tpu_torch.stark.verifier import verify_proof
+    from olavm_tpu_torch.utils import jitcache
+
+    class Scaled(Stark):
+        COLUMNS = 2
+
+        def __init__(self, k):
+            self.k = k
+
+        def eval_packed(self, local, nxt, consumer):
+            F = consumer.F
+            consumer.constraint(F.sub(F.scalar_mul(local[0], self.k),
+                                      local[1]))
+
+    class Copy(Stark):
+        COLUMNS = 1
+
+        def eval_packed(self, local, nxt, consumer):
+            pass
+
+    class System:
+        def __init__(self, k):
+            self.starks = [Scaled(k), Copy()]
+            self.cross_table_lookups = [CrossTableLookup(
+                looking_tables=[TableWithColumns(0, [Column.single(0)], None)],
+                looked_table=TableWithColumns(1, [Column.single(0)], None))]
+
+        def compress_challenges(self):
+            return [0, 0]
+
+    a = _rand(64, 5)
+    config = StarkConfig(fri_config=FriConfig(proof_of_work_bits=8))
+    jitcache.clear()
+    for k in (3, 5, 3):
+        scaled = np.stack([a, g.mul_arr(a, np.uint64(k))])
+        proof = prove_with_traces_device(System(k), config,
+                                         [scaled, a.reshape(1, -1)],
+                                         device=dev)
+        verify_proof(System(k), proof, config)
+    qkeys = [s for s in jitcache.stats().values() if s["tag"] == "qclass"]
+    assert len(qkeys) == 3  # one per (table, constant); k = 3 replayed
+    jitcache.clear()

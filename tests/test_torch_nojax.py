@@ -46,7 +46,8 @@ result["entry_points"] = sorted(set(names) & {
     "olavm_tpu_torch.stark.oracle", "olavm_tpu_torch.stark.prover",
     "olavm_tpu_torch.utils.trace_analyzer", "olavm_tpu_torch.node.olavm",
     "olavm_tpu_torch.state.node_state", "olavm_tpu_torch.state.store",
-    "olavm_tpu_torch.parallel", "olavm_tpu_torch.parallel.sharded"})
+    "olavm_tpu_torch.parallel", "olavm_tpu_torch.parallel.sharded",
+    "olavm_tpu_torch.utils.jitcache"})
 """
 
 REFERENCE_NATIVE = """
@@ -143,6 +144,12 @@ proof = prove_with_traces_device(
     device="cpu")
 verify_proof(Toy(), proof, config)
 result["verified"] = True
+# the programs' eager path (programs=False) gives the same proof
+from olavm_tpu_torch.stark.serialization import serialize_all_proof as ser
+eager = prove_with_traces_device(
+    Toy(), config, [np.stack([a, b, c, c[::-1].copy()]), a.reshape(1, n)],
+    device="cpu", programs=False)
+result["eager_equal"] = ser(eager) == ser(proof)
 """
 
 SHARDED_PROVE = """
@@ -187,13 +194,13 @@ def _run(*parts: str) -> dict:
 def test_port_imports_and_runs_with_jax_refused():
     res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, NODE_TX,
                TOY_PROVE, SHARDED_PROVE)
-    assert res["modules"] >= 83
-    # the host prover, the CLI's, the node's and the sharded prover's
-    # modules, among them
-    assert len(res["entry_points"]) == 10
+    assert res["modules"] >= 84
+    # the host prover, the CLI's, the node's, the sharded prover's and the
+    # program layer's modules, among them
+    assert len(res["entry_points"]) == 11
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
     assert res["node"] == [1, 12]
-    assert res["verified"] and res["sharded_equal"]
+    assert res["verified"] and res["sharded_equal"] and res["eager_equal"]
     assert res["jax_loaded"] == [] and res["reference_loaded"] == []
 
 
