@@ -31,9 +31,21 @@ without printing a result:
    -> verify_proof four times on those traces in the same turns, each proof
    equal to the golden that olavm_tpu's host prover made at N=94000
    (tests/fixtures/fib_loop_golden_full.json and
-   fib_loop_golden_full_poseidon.json); then, with the programs dropped,
-   N=376000 (2^22 CPU rows) with blake3 caps, proved and verified (no golden
-   exists at this size);
+   fib_loop_golden_full_poseidon.json);
+4b. the instruction set, with N=94000's programs still held: the fixture
+   tests/fixtures/allops_asm.json (24 of the 26 opcodes in a loop of K
+   iterations; PoseidonStark, PoseidonChunkStark, StorageAccessStark and
+   TapeStark hold rows) through the interpreter path, run_program_full ->
+   generate_traces, at K=ALLOPS_K proved with blake3 caps (capturing) and
+   Poseidon caps (replaying), then at K=ALLOPS_K_FULL (PoseidonStark (134,
+   2^20), StorageAccessStark (48, 2^19)) proved twice with blake3 caps
+   (capturing, then replaying), each proof equal to the golden that
+   olavm_tpu's host prover made (tests/fixtures/allops_golden.json,
+   allops_golden_poseidon.json, allops_golden_full.json); then N=376000
+   (2^22 CPU rows) with blake3 caps, proved and verified on top of every
+   earlier size's programs (no golden exists at this size); then, with the
+   programs dropped, K=ALLOPS_K with Poseidon caps (capturing) and blake3
+   caps (replaying);
 5. the node: olavm_tpu_torch.node's OlaVM deploys the sccall fixture pair
    (manual_deploy), runs the caller's tx (execute_tx), merges its envs
    (gen_tx_trace) and generates its tables; the card proves them, the
@@ -56,9 +68,11 @@ without printing a result:
 
 Every prove runs with the device prover's programs (olavm_tpu_torch/utils/
 jitcache.py: CUDA graphs captured at their first use in the process and
-replayed after; the programs are dropped before N=376000, before the node
-and before phase 7, whose ranks capture their own). Every prove of phases
-3-5, and every rank's prove of phase 7, is one run of the main path: each
+replayed after, and dropped only where phases 3, 4 and 4b cross their
+turns: a prove that outgrows the programs' buffers frees those of the
+graphs it does not use, so the sizes need no clear() between them; the
+ranks of phase 7 capture their own). Every prove of phases 3-5, and every
+rank's prove of phase 7, is one run of the main path: each
 kernel's launch count is reset just before it and read just after it (in
 the rank's own process), counting the launches the host issued and those
 that graph replays ran (each capture records its graph's launches, and
@@ -73,7 +87,8 @@ At the end neither jax nor any module of olavm_tpu may have been loaded, in
 this process or in any rank. The
 last lines are every prove's seconds, peak memory, launch counts and
 sha256, the programs (per tag at N=94000, per prove the launches the host
-issued and those replayed), the nanoseconds per permutation of K2 and of the Poseidon leaf and
+issued and those replayed, the reserved peak and the programs' bytes
+beside the card's memory), the nanoseconds per permutation of K2 and of the Poseidon leaf and
 level kernels at their largest shapes, the `kernels` JSON line (launches
 summed over the proves), the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}. A longer report goes to
@@ -213,6 +228,50 @@ def write_fib_program(n: int, directory: str) -> str:
     with open(path, "w") as f:
         json.dump(spec, f)
     return path
+
+
+# the instruction-set program (tests/fixtures/allops_asm.json): 24 of the 26
+# opcodes (all but SCCALL and SIGCHECK) in a loop of K iterations, run through
+# run_program_full with this calldata (which sets up the tape); PoseidonStark
+# has about 2^11 K rows, StorageAccessStark 2^10 K
+ALLOPS_K = 4
+ALLOPS_K_FULL = 512  # PoseidonStark (134, 2^20), StorageAccessStark (48, 2^19)
+ALLOPS_CALLDATA = [0, 0]
+
+
+def write_allops_program(k: int, directory: str) -> str:
+    """The instruction-set fixture with K substituted, as an asm JSON file."""
+    with open(os.path.join(FIXTURES, "allops_asm.json")) as f:
+        spec = json.load(f)
+    spec["program"] = spec["program"].replace("{K}", str(k))
+    path = os.path.join(directory, f"allops_{k}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def allops_traces(k: int, package: str = "olavm_tpu_torch"):
+    """The instruction-set fixture at K=k through `package`'s
+    run_program_full (calldata ALLOPS_CALLDATA) and generate_traces.
+    Returns (traces, public_values, ola, program_sha256), the last the sha256
+    of the assembled bytecode."""
+    import importlib
+
+    encoder = importlib.import_module(f"{package}.assembler.encoder")
+    harness = importlib.import_module(f"{package}.runtime.harness")
+    ola_stark = importlib.import_module(f"{package}.tables.ola_stark")
+    proof = importlib.import_module(f"{package}.stark.proof")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = write_allops_program(k, d)
+        bytecode = encoder.encode_asm_from_json_file(path).bytecode
+        _, program, _ = harness.run_program_full(path, calldata=ALLOPS_CALLDATA)
+    ola = ola_stark.OlaStark()
+    traces = ola_stark.generate_traces(program, ola)
+    pre, post = program.trace.start_end_roots
+    public_values = proof.PublicValues(tuple(pre), tuple(post), 0)
+    return (traces, public_values, ola,
+            hashlib.sha256(bytecode.encode()).hexdigest())
 
 
 # the node path: a caller and a callee written by hand in the fixtures' asm
@@ -777,12 +836,8 @@ def prepare(n: int, workdir: str, trace_dir: str | None = None):
     returns (proof, seconds, config); report holds the sizes and the seconds
     so far. Given `trace_dir`, the traces are also written there
     (save_traces), for the sharded ranks of phase 7."""
-    import torch
-
     from olavm_tpu_torch.runtime.harness import run_program_fast
-    from olavm_tpu_torch.stark.config import StarkConfig
     from olavm_tpu_torch.stark.proof import PublicValues
-    from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
     from olavm_tpu_torch.tables.fast_gen import generate_traces_fast
     from olavm_tpu_torch.tables.ola_stark import OlaStark
 
@@ -797,29 +852,12 @@ def prepare(n: int, workdir: str, trace_dir: str | None = None):
     traces = generate_traces_fast(fast_run, program, ola, process)
     seconds["trace_gen"] = time.perf_counter() - t0
     pre, post = program.trace.start_end_roots
-    public_values = PublicValues(tuple(pre), tuple(post), 0)
-
-    def prove(device, timing=None, merkle_hasher="blake3"):
-        config = StarkConfig.standard_fast_config()
-        config.merkle_hasher = merkle_hasher
-        t0 = time.perf_counter()
-        proof = prove_with_traces_device(ola, config, traces,
-                                         public_values=public_values,
-                                         timing=timing, device=device)
-        torch.cuda.synchronize()
-        return proof, time.perf_counter() - t0, config
-
-    report = {
-        "N": n,
-        "steps": int(fast_run.cpu.shape[0]),
-        "table_shapes": [list(t.shape) for t in traces],
-        "public_values": {"pre_root": [int(x) for x in pre],
-                          "post_root": [int(x) for x in post]},
-        "seconds": seconds,
-    }
+    prepared = prepared_tables(
+        traces, PublicValues(tuple(pre), tuple(post), 0), ola,
+        {"N": n, "steps": int(fast_run.cpu.shape[0]), "seconds": seconds})
     if trace_dir is not None:
-        save_traces(trace_dir, traces, report, ola)
-    return prove, report, ola
+        save_traces(trace_dir, traces, prepared[1], ola)
+    return prepared
 
 
 def save_traces(trace_dir: str, traces, report: dict, ola) -> None:
@@ -857,17 +895,13 @@ def load_traces(trace_dir: str):
                                 0), ola, report
 
 
-def prepare_node():
-    """node_tx's tables, as prepare() gives a program's: (prove, report,
-    ola)."""
+def prepared_tables(traces, public_values, ola, report: dict):
+    """What prepare() gives for tables made elsewhere: (prove, report, ola),
+    the report completed with the table shapes and public values."""
     import torch
 
     from olavm_tpu_torch.stark.config import StarkConfig
     from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
-
-    t0 = time.perf_counter()
-    _, trace, traces, public_values, ola = node_tx()
-    seconds = {"execute_and_trace_gen": time.perf_counter() - t0}
 
     def prove(device, timing=None, merkle_hasher="blake3"):
         config = StarkConfig.standard_fast_config()
@@ -879,15 +913,35 @@ def prepare_node():
         torch.cuda.synchronize()
         return proof, time.perf_counter() - t0, config
 
-    report = {
-        "N": None, "steps": len(trace.exec), "sccall_rows": len(trace.sc_call),
+    report.update({
         "table_shapes": [list(t.shape) for t in traces],
         "public_values": {
             "pre_root": [int(x) for x in public_values.pre_state_root],
-            "post_root": [int(x) for x in public_values.post_state_root]},
-        "seconds": seconds,
-    }
+            "post_root": [int(x) for x in public_values.post_state_root]}})
     return prove, report, ola
+
+
+def prepare_node():
+    """node_tx's tables, as prepare() gives a program's: (prove, report,
+    ola)."""
+    t0 = time.perf_counter()
+    _, trace, traces, public_values, ola = node_tx()
+    seconds = {"execute_and_trace_gen": time.perf_counter() - t0}
+    return prepared_tables(traces, public_values, ola, {
+        "N": None, "steps": len(trace.exec), "sccall_rows": len(trace.sc_call),
+        "seconds": seconds})
+
+
+def prepare_allops(k: int):
+    """The instruction-set fixture's tables at K=k (allops_traces: the
+    interpreter path, run_program_full -> generate_traces), as prepare()
+    gives a program's: (prove, report, ola)."""
+    t0 = time.perf_counter()
+    traces, public_values, ola, program_sha256 = allops_traces(k)
+    seconds = {"execute_and_trace_gen": time.perf_counter() - t0}
+    return prepared_tables(traces, public_values, ola, {
+        "K": k, "calldata": ALLOPS_CALLDATA, "program_sha256": program_sha256,
+        "seconds": seconds})
 
 
 def host_peak_resident() -> int:
@@ -941,9 +995,9 @@ def program_memory() -> dict:
 
 
 def program_counts(before: dict, after: dict) -> dict:
-    """Captures, replays and the kernel launches the replays ran between two
-    jitcache.stats(), in all and per program tag."""
-    fields = ("captures", "replays", "replayed_launches")
+    """Captures, graphs dropped, replays and the kernel launches the replays
+    ran between two jitcache.stats(), in all and per program tag."""
+    fields = ("captures", "dropped", "replays", "replayed_launches")
     out = {**dict.fromkeys(fields, 0), "by_tag": {}}
     for key, st in after.items():
         old = before.get(key, dict.fromkeys(fields, 0))
@@ -1042,12 +1096,14 @@ def check_path_launches(launches: dict, hasher: str, ola, table_shapes
 
 def check_golden(report: dict, golden_file: str) -> dict:
     """The proof's public values, sha256 and length against a golden of
-    olavm_tpu's, and its N, steps, sccall rows and table shapes where the
-    golden has them; returns what was compared."""
+    olavm_tpu's, and its N or K, steps, sccall rows, table shapes, calldata
+    and program's sha256 where the golden has them; returns what was
+    compared."""
     with open(os.path.join(FIXTURES, golden_file)) as f:
         golden = json.load(f)
     for key in ("public_values", "proof_sha256", "proof_bytes",
-                *(k for k in ("N", "steps", "sccall_rows", "table_shapes")
+                *(k for k in ("N", "K", "steps", "sccall_rows", "table_shapes",
+                              "calldata", "program_sha256")
                   if k in golden)):
         if report[key] != golden[key]:
             raise AssertionError(
@@ -1123,6 +1179,13 @@ FULL_GOLDENS = {
 }
 # the node tx's proof by olavm_tpu's node and host prover, blake3 caps
 NODE_GOLDEN = "node_sccall_golden.json"
+# the instruction-set fixture's proofs by olavm_tpu's host prover: at
+# ALLOPS_K with each hasher, at ALLOPS_K_FULL with blake3 caps
+ALLOPS_GOLDENS = {
+    "blake3": "allops_golden.json",
+    "poseidon": "allops_golden_poseidon.json",
+}
+ALLOPS_GOLDEN_FULL = "allops_golden_full.json"
 
 
 # ---------------------------------------------------------------------------
@@ -1389,24 +1452,58 @@ def run() -> int:
         del small
 
         # 4. the main path at full size, both Merkle hashers on the same
-        # traces, then 2^22 CPU rows with blake3 caps (no golden: olavm_tpu's
-        # host prover would need ~4 x 48.56 GiB of host memory), after the
-        # smaller sizes' programs are dropped
+        # traces
         log(f"[4] main path at N={FULL_N} "
             f"(at {time.perf_counter() - started:.1f} s)")
         full_prep = prepare(FULL_N, workdir, os.path.join(workdir, "full"))
         report["full"] = golden_pair(FULL_N, full_prep, FULL_GOLDENS)
         report["programs_full"] = program_summary()
         del full_prep
-        log(f"[4] main path at N={LARGE_N} "
+
+        # 4b. the instruction set through the interpreter path, with the
+        # programs of N=94000 still held: K=ALLOPS_K captured with blake3
+        # caps and replayed with Poseidon caps, K=ALLOPS_K_FULL captured and
+        # replayed with blake3 caps, then 2^22 CPU rows (blake3 caps, no
+        # golden: olavm_tpu's host prover would need ~4 x 48.56 GiB of host
+        # memory) on top of all of these programs; then, with the programs
+        # dropped, K=ALLOPS_K captured with Poseidon caps and replayed with
+        # blake3 caps
+        allops = report["allops"] = {}
+        log(f"[4b] instruction set at K={ALLOPS_K} "
             f"(at {time.perf_counter() - started:.1f} s)")
-        jitcache.clear()
+        small_allops = prepare_allops(ALLOPS_K)
+        log(f"    shapes {small_allops[1]['table_shapes']}, execute and "
+            f"trace gen {small_allops[1]['seconds']}")
+        for label, hasher, replays in (
+                (f"K={ALLOPS_K} blake3 (captures)", "blake3", False),
+                (f"K={ALLOPS_K} poseidon", "poseidon", True)):
+            allops[label] = path(label, small_allops, hasher,
+                                 ALLOPS_GOLDENS[hasher], replays)
+        log(f"[4b] instruction set at K={ALLOPS_K_FULL} "
+            f"(at {time.perf_counter() - started:.1f} s)")
+        full_allops = prepare_allops(ALLOPS_K_FULL)
+        log(f"    shapes {full_allops[1]['table_shapes']}, execute and "
+            f"trace gen {full_allops[1]['seconds']}")
+        for label, replays in ((f"K={ALLOPS_K_FULL} blake3 (captures)", False),
+                               (f"K={ALLOPS_K_FULL} blake3", True)):
+            allops[label] = path(label, full_allops, "blake3",
+                                 ALLOPS_GOLDEN_FULL, replays)
+        report["programs_after_allops_full"] = jitcache.stats()
+        del full_allops
+        log(f"[4b] main path at N={LARGE_N}, every earlier size's programs "
+            f"held (at {time.perf_counter() - started:.1f} s)")
         large_prep = prepare(LARGE_N, workdir)
         report["large"] = path(f"N={LARGE_N} blake3", large_prep, "blake3",
                                None)
         log(f"    shapes {report['large']['table_shapes']}")
         del large_prep
         jitcache.clear()
+        for label, hasher, replays in (
+                (f"K={ALLOPS_K} poseidon (captures)", "poseidon", False),
+                (f"K={ALLOPS_K} blake3", "blake3", True)):
+            allops[label] = path(label, small_allops, hasher,
+                                 ALLOPS_GOLDENS[hasher], replays)
+        del small_allops
 
         # 5. the node: deploy the sccall pair, run the caller's tx, prove its
         # tables on the card
@@ -1424,7 +1521,6 @@ def run() -> int:
         # 7. the sharded prover: a group of two ranks on the card over
         # gloo, one rank over NCCL, on the traces of phases 3 and 4 (each
         # rank captures its own programs)
-        jitcache.clear()
         report["sharded"] = sharded_path(workdir, started)
 
     jax_after = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
@@ -1435,10 +1531,11 @@ def run() -> int:
         raise AssertionError(f"the port imported {reference}")
 
     # launches: the sum over the runs of the main path (N=10 with both
-    # hashers, N=94000 with both, N=376000, the node tx, every rank of the
-    # sharded proves)
+    # hashers, N=94000 with both, the instruction set at both sizes,
+    # N=376000, the node tx, every rank of the sharded proves)
     runs = [*report["golden"].values(), *report["full"].values(),
-            report["large"], report["node"], *report["sharded"]]
+            *report["allops"].values(), report["large"], report["node"],
+            *report["sharded"]]
     kernel_line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(r["launches"][c] for c in counters for r in runs),
@@ -1463,12 +1560,14 @@ def run() -> int:
     # nodes, capture seconds), and per prove the launches the host issued
     # and those that graph replays ran, captures and replays
     print(json.dumps({"programs": {
+        "card_memory_bytes": torch.cuda.get_device_properties(0).total_memory,
         "by_tag_after_n94000": report["programs_full"],
         "proves": {r["label"]: {
             "host_issued": sum(r["host_launches"].values()),
             "replayed": sum(r["launches"].values())
             - sum(r["host_launches"].values()),
             "captures": r["programs"]["captures"],
+            "dropped": r["programs"]["dropped"],
             "replays": r["programs"]["replays"],
             "peak_reserved_bytes": r.get("peak_reserved_bytes"),
             "program_memory_bytes": r.get("program_memory_bytes")}

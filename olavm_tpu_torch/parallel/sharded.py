@@ -366,6 +366,76 @@ def prove_with_traces_sharded(ola_stark, config, trace_poly_values,
         timing=timing, device=device, oracle=ShardedOracle(mesh))
 
 
+def _toy_system():
+    """The port's ToySystem module (tests/torch_toy_system.py), found
+    through the repository's tests directory, which goes on sys.path once.
+    It imports neither pytest nor anything that changes torch's threads."""
+    import sys
+
+    tests_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import torch_toy_system
+
+    return torch_toy_system
+
+
+def _dryrun_rank(config) -> bytes:
+    """One rank of dryrun_prove_step: the sharded prove of ToySystem at
+    degree 64, serialized."""
+    from ..stark.serialization import serialize_all_proof
+
+    toy = _toy_system()
+    proof = prove_with_traces_sharded(toy.ToySystem(), config,
+                                      toy.build_traces(64),
+                                      device=config.mesh.device_type)
+    return serialize_all_proof(proof)
+
+
+def dryrun_prove_step(n_devices: int, config=None) -> None:
+    """One sharded prove of ToySystem (degree 64) on `n_devices` ranks
+    spawned by run_ranks, then the same prove on one device in this
+    process, asserting that every rank's proof serializes to the
+    single-device bytes and that the proof verifies; the counterpart of
+    olavm_tpu/parallel/sharded.py's dryrun_prove_step. ToySystem is the
+    port's own (tests/torch_toy_system.py). `config` None is
+    standard_fast_config. The ranks and the single-device prove run on
+    `config.mesh.device_type`; where the config names no mesh, on one rank
+    per card (NCCL) when a card is present, else on gloo ranks on the CPU.
+    On the cards, n_devices may not exceed the cards present (NCCL refuses
+    two ranks on one card)."""
+    import dataclasses
+
+    from ..stark.config import MeshConfig, StarkConfig
+    from ..stark.prover_device import prove_with_traces_device
+    from ..stark.serialization import deserialize_all_proof, serialize_all_proof
+    from ..stark.verifier import verify_proof
+
+    config = config or StarkConfig.standard_fast_config()
+    if config.mesh is None:
+        config = dataclasses.replace(config, mesh=MeshConfig(
+            device_type="cuda" if torch.cuda.is_available() else "cpu"))
+    device_type = config.mesh.device_type
+    if device_type == "cuda" and n_devices > torch.cuda.device_count():
+        raise ValueError(
+            f"dryrun_prove_step: {n_devices} ranks need {n_devices} cards, "
+            f"{torch.cuda.device_count()} present (one rank per card)")
+    ranks = run_ranks(_dryrun_rank, n_devices, config.mesh.backend,
+                      device_type, config)
+    toy = _toy_system()
+    single = serialize_all_proof(prove_with_traces_device(
+        toy.ToySystem(), config, toy.build_traces(64), device=device_type))
+    for rank, data in enumerate(ranks):
+        assert data == single, (
+            f"rank {rank}'s sharded proof ({len(data)} B) != single-device "
+            f"proof ({len(single)} B)")
+    verify_proof(toy.ToySystem(), deserialize_all_proof(ranks[0]), config)
+    print(f"dryrun_multichip OK: mesh={mesh_shape(n_devices)} on "
+          f"{device_type}, proof_bytes={len(single)}, "
+          f"proof-bytes-equal=True, verified=True")
+
+
 def run_ranks(fn, world: int, backend: str | None = None,
               device_type: str = "cuda", *args) -> list:
     """Spawn `world` processes, rank r running fn(*args) in a process group

@@ -210,6 +210,31 @@ def quotient_class(stark, coeffs, zs_coeffs, cls, bank, *, num_alphas: int,
                         for acc in consumer.accumulators()])
 
 
+def quotient_degree_bits(stark, config) -> int:
+    """log2 of the quotient coset's size over the trace's (the quotient
+    degree factor rounded up to a power of two)."""
+    qdf = stark.quotient_degree_factor()
+    qdb = qdf.bit_length() - 1
+    if (1 << qdb) < qdf:
+        qdb += 1
+    assert qdb <= config.fri_config.rate_bits
+    return qdb
+
+
+def class_constants(degree_bits: int, qdb: int, r: int, device
+                    ) -> torch.Tensor:
+    """quotient_class's `cls` for residue class r of the quotient coset
+    g*W, |W| = n << qdb: [shift, c/n, c g^{-1}/n, 1/c] with shift = g w^r
+    and c = shift^n - 1."""
+    degree = 1 << degree_bits
+    w = g.primitive_root_of_unity(degree_bits + qdb)
+    g_last = g.inv(g.primitive_root_of_unity(degree_bits))  # gen^{n-1}
+    shift = g.mul(g.MULTIPLICATIVE_GROUP_GENERATOR, pow(w, r, g.P))
+    c = g.sub(pow(shift, degree, g.P), 1)
+    c_n = g.mul(c, g.inv(degree))
+    return gf.from_u64([shift, c_n, g.mul(c_n, g_last), g.inv(c)], device)
+
+
 def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
                                   permutation_challenges, ctl_data, alphas,
                                   degree_bits, num_permutation_zs, mesh=None
@@ -231,10 +256,7 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
     device = trace_batch.coeffs.device
     degree = 1 << degree_bits
     qdf = stark.quotient_degree_factor()
-    qdb = qdf.bit_length() - 1
-    if (1 << qdb) < qdf:
-        qdb += 1
-    assert qdb <= config.fri_config.rate_bits
+    qdb = quotient_degree_bits(stark, config)
     size = degree << qdb
 
     values, perm_meta, ctl_offsets = quotient_bank(
@@ -251,15 +273,8 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
         ctl_views=ctl_views, ctl_offsets=ctl_offsets,
         num_permutation_zs=num_permutation_zs))
 
-    w = g.primitive_root_of_unity(degree_bits + qdb)
-    g_last = g.inv(g.primitive_root_of_unity(degree_bits))  # gen^{n-1}
-    n_inv = g.inv(degree)
-
     def class_values(r: int) -> torch.Tensor:
-        shift = g.mul(g.MULTIPLICATIVE_GROUP_GENERATOR, pow(w, r, g.P))
-        c = g.sub(pow(shift, degree, g.P), 1)
-        c_n = g.mul(c, n_inv)
-        cls = gf.from_u64([shift, c_n, g.mul(c_n, g_last), g.inv(c)], device)
+        cls = class_constants(degree_bits, qdb, r, device)
         return program(trace_batch.coeffs, zs_batch.coeffs, cls, bank)
 
     n_classes = 1 << qdb
@@ -757,9 +772,12 @@ def prove_with_traces_device(ola_stark, config: StarkConfig,
     then checked to agree. On the card the grand products, the quotient's
     classes, the openings' power tables and the FRI composition, folds and
     re-FFTs run as programs (utils/jitcache.py: CUDA graphs captured at
-    their first use in the process and replayed after); `programs=False`
-    issues them op by op instead (the counterpart of olavm_tpu's
-    OLAVM_NO_EXPORT_CACHE), with the same proof."""
+    their first use in the process and replayed after; a prove that
+    outgrows the programs' buffers frees those that earlier proves' graphs
+    held, jitcache.begin_prove); `programs=False` issues them op by op
+    instead (the counterpart of olavm_tpu's OLAVM_NO_EXPORT_CACHE), with
+    the same proof."""
+    jitcache.begin_prove()
     with jitcache.enabled(programs):
         return _prove_with_traces_device(ola_stark, config, trace_poly_values,
                                          public_values, timing, device, oracle)

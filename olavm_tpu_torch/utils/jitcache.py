@@ -30,6 +30,13 @@ output outgrows it. A replay fills its input views just before it runs and
 copies its outputs out just after, and replays run one at a time on the
 current stream, so the buffers hold about the largest table's trace, Z and
 quotient coefficients once, not once per program, table or CTL view.
+A buffer outgrown within one prove stays for the graphs that read it. One
+outgrown by a later prove (a prove of larger tables in the same process)
+is freed: the growth drops every graph that reads that buffer position and
+that the prove has neither captured nor replayed, and each such program is
+captured again, on the new buffer, at its next use (`begin_prove`, which
+the device prover calls first). So the buffers of a process hold about
+what its largest prove needs, not the sum over the sizes it proved.
 Every graph allocates its working memory from one pool per device, and
 nothing stays live in the pool between replays, so the pool holds about
 the largest program's working set, not the sum over the programs. A replay
@@ -77,6 +84,15 @@ _BUFFERS: dict = {}
 # device -> the graph memory pool that every program on it shares
 _POOLS: dict = {}
 _ENABLED = contextvars.ContextVar("olavm_tpu_torch_programs", default=True)
+# the proves begun in this process (begin_prove); a graph records the one it
+# was captured in
+_PROVES = [0]
+
+
+def begin_prove() -> None:
+    """Start a prove: a buffer that one of its captures outgrows is freed
+    with the graphs that read it and that this prove has not used."""
+    _PROVES[0] += 1
 
 
 @contextmanager
@@ -103,15 +119,22 @@ class _Graph:
         self.nodes = nodes
         self.capture_seconds = seconds
         self.pool_bytes = pool_bytes
-        self.replays = 0
+        self.prove = _PROVES[0]  # the last prove that used the graph
 
     def replay(self, inputs):
+        self.prove = _PROVES[0]
         for slot, t in zip(self.slots, inputs):
             slot.copy_(t)
         self.graph.replay()
         kernels.add_replayed(self.launches)
-        self.replays += 1
         return tuple(t.clone() for t in self.outputs)
+
+    def reads(self, kind: str, i: int, dtype, device) -> bool:
+        """Whether this graph's i-th input ("in") or output ("out") view
+        lies in a buffer of that dtype and device."""
+        views = self.slots if kind == "in" else self.outputs
+        return (i < len(views) and views[i].dtype == dtype
+                and views[i].device == device)
 
 
 class Program:
@@ -122,6 +145,11 @@ class Program:
         self.key = key
         self.fn = fn
         self.graphs: dict = {}
+        # since the program was made: graphs captured and dropped, replays
+        # and the launches they ran, capture seconds
+        self.captures = self.dropped = self.replays = 0
+        self.replayed_launches = 0
+        self.capture_seconds = 0.0
 
     def __call__(self, *inputs: torch.Tensor):
         device = inputs[0].device
@@ -133,20 +161,25 @@ class Program:
         entry = self.graphs.get(sig)
         if entry is None:
             out = self.fn(*inputs)  # the warm-up
-            self.graphs[sig] = self._capture(device, inputs, out)
+            graph = self.graphs[sig] = self._capture(device, inputs, out)
+            self.captures += 1
+            self.capture_seconds += graph.capture_seconds
             return out
         outs = entry.replay(inputs)
+        self.replays += 1
+        self.replayed_launches += sum(entry.launches.values())
         return outs if self._returns_tuple else outs[0]
 
     def _capture(self, device, inputs, warm_out) -> _Graph:
         self._returns_tuple = isinstance(warm_out, (tuple, list))
         warm = tuple(warm_out) if self._returns_tuple else (warm_out,)
+        # no replay is in flight when a buffer's growth drops a graph
+        torch.cuda.synchronize(device)
         slots = [_view("in", i, t) for i, t in enumerate(inputs)]
         outputs = [_view("out", i, t) for i, t in enumerate(warm)]
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # torch.cuda.graph empties the cache itself: empty it first, so that
         # the growth of the reserved memory is the pool's
-        torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
@@ -182,9 +215,24 @@ def _view(kind: str, i: int, t: torch.Tensor) -> torch.Tensor:
     key = (kind, i, t.dtype, t.device)
     buf = _BUFFERS.get(key)
     if buf is None or buf.numel() < numel:
+        if buf is not None:
+            _drop_earlier_readers(*key)
         buf = _BUFFERS[key] = torch.empty(max(numel, 1), dtype=t.dtype,
                                           device=t.device)
     return buf[:numel].view(t.shape)
+
+
+def _drop_earlier_readers(kind: str, i: int, dtype, device) -> None:
+    """Drop every graph that reads a buffer of (kind, position i, dtype,
+    device), which is being outgrown, and that the prove now running has
+    not used: the buffers it reads are freed once no graph holds them, and
+    its program captures again at its next use."""
+    for prog in _PROGRAMS.values():
+        for sig, g in list(prog.graphs.items()):
+            if g.prove < _PROVES[0] and g.reads(kind, i, dtype, device):
+                g.graph.reset()
+                del prog.graphs[sig]
+                prog.dropped += 1
 
 
 def _pool(device):
@@ -212,23 +260,24 @@ def cached_jit(key, fn) -> Program:
 
 
 def stats() -> dict:
-    """Per key (its repr): captures, replays, capture seconds, graph nodes,
-    the bytes its captures added to the shared pool, the kernel launches of
-    one replay (summed over the key's input shapes) and those of all its
-    replays."""
+    """Per key (its repr), since its program was made: captures, graphs
+    dropped (begin_prove), replays, the kernel launches those replays ran,
+    capture seconds; and of the graphs it holds now: graph nodes, the bytes
+    their captures added to the shared pool, the kernel launches of one
+    replay of each (summed over the key's input shapes)."""
     out = {}
     for key, prog in _PROGRAMS.items():
         graphs = list(prog.graphs.values())
         out[repr(key)] = {
             "tag": key[0] if isinstance(key, tuple) else key,
-            "captures": len(graphs),
-            "replays": sum(g.replays for g in graphs),
-            "capture_seconds": sum(g.capture_seconds for g in graphs),
+            "captures": prog.captures,
+            "dropped": prog.dropped,
+            "replays": prog.replays,
+            "capture_seconds": prog.capture_seconds,
             "nodes": sum(g.nodes for g in graphs),
             "pool_bytes": sum(g.pool_bytes for g in graphs),
             "launches": sum(sum(g.launches.values()) for g in graphs),
-            "replayed_launches": sum(g.replays * sum(g.launches.values())
-                                     for g in graphs),
+            "replayed_launches": prog.replayed_launches,
         }
     return out
 

@@ -39,6 +39,7 @@ from olavm_tpu_torch.stark.consumer import ConstraintConsumer as TConsumer
 from olavm_tpu_torch.stark.ops import BaseOps as TBaseOps
 from olavm_tpu_torch.stark.ops import ExtOps as TExtOps
 from olavm_tpu_torch.utils import bits as t_bits
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P = j_g.P

@@ -16,6 +16,7 @@ import torch
 from chip_smoke import cli_stages
 from olavm_tpu.cli import main as jcli
 from olavm_tpu_torch.cli import main as tcli
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 

@@ -21,6 +21,7 @@ from olavm_tpu_torch.stark import ctl_device as tctl
 from olavm_tpu_torch.stark.challenger import Challenger as TorchChallenger
 
 from test_stark_framework import ToySystem, build_traces
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 
 def _challengers(seed_values):

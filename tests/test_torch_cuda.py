@@ -19,6 +19,7 @@ from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.hash import poseidon as tpos
 from olavm_tpu_torch.merkle import device as tmerkle
 from olavm_tpu_torch.ntt import ntt as tntt
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 pytestmark = pytest.mark.cuda
 
@@ -537,4 +538,37 @@ def test_programs_follow_a_stark_constant_that_changes(dev):
         verify_proof(System(k), proof, config)
     qkeys = [s for s in jitcache.stats().values() if s["tag"] == "qclass"]
     assert len(qkeys) == 3  # one per (table, constant); k = 3 replayed
+    jitcache.clear()
+
+
+def test_a_later_prove_that_outgrows_the_buffers_frees_earlier_graphs(dev):
+    """The buffer rule on the card (jitcache.begin_prove): a program
+    captured by one prove, then captured at a larger shape by a later prove,
+    drops the earlier graph with its buffers; both shapes still give the
+    eager values, the smaller one captured again on the larger buffers."""
+    from olavm_tpu_torch.utils import jitcache
+
+    jitcache.clear()
+    prog = jitcache.cached_jit(("rule",), lambda x, y: gf.mul(gf.add(x, y), y))
+    small = [convert.from_u64(_rand(1 << 10, s), dev) for s in (1, 2)]
+    large = [convert.from_u64(_rand(1 << 20, s), dev) for s in (3, 4)]
+    want = {n: gf.mul(gf.add(x, y), y) for n, (x, y) in
+            (("small", small), ("large", large))}
+    jitcache.begin_prove()
+    for _ in range(2):  # the capture, then a replay
+        assert torch.equal(prog(*small), want["small"])
+    held = jitcache.buffer_bytes()
+    assert held == 3 * 8 << 10  # two inputs and the output
+    jitcache.begin_prove()
+    for _ in range(2):
+        assert torch.equal(prog(*large), want["large"])
+    st = jitcache.stats()[repr(("rule",))]
+    assert (st["captures"], st["dropped"], st["replays"]) == (2, 1, 2)
+    assert jitcache.buffer_bytes() == 3 * 8 << 20
+    jitcache.begin_prove()
+    for _ in range(2):
+        assert torch.equal(prog(*small), want["small"])
+    st = jitcache.stats()[repr(("rule",))]
+    assert (st["captures"], st["dropped"], st["replays"]) == (3, 1, 3)
+    assert jitcache.buffer_bytes() == 3 * 8 << 20
     jitcache.clear()

@@ -28,6 +28,7 @@ import pytest
 
 from olavm_tpu_torch import kernels
 from olavm_tpu_torch.field import gf
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 P = 2**64 - 2**32 + 1
 M64 = 2**64 - 1

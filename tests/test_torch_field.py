@@ -16,6 +16,7 @@ from olavm_tpu_torch import convert
 from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.field import gfe
 from olavm_tpu_torch.stark.ops import TorchOps
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 P = g.P
 EDGE = [0, 1, 2, 0xFFFFFFFF, 0x100000000, 0x100000001, P - 1, P - 2,

@@ -35,6 +35,7 @@ import sys
 import tempfile
 
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = os.path.join(FIXTURES, "fib_loop_golden.json")
@@ -46,6 +47,9 @@ GOLDEN_FULL = {
     "poseidon": os.path.join(FIXTURES, "fib_loop_golden_full_poseidon.json"),
 }
 GOLDEN_N = 10
+GOLDEN_ALLOPS = os.path.join(FIXTURES, "allops_golden.json")
+GOLDEN_ALLOPS_POSEIDON = os.path.join(FIXTURES, "allops_golden_poseidon.json")
+GOLDEN_ALLOPS_FULL = os.path.join(FIXTURES, "allops_golden_full.json")
 
 
 def golden_record(n: int = GOLDEN_N, merkle_hasher: str = "blake3") -> dict:
@@ -124,11 +128,51 @@ def node_golden_record() -> dict:
             "proof_bytes": len(data)}
 
 
+def allops_golden_record(k: int | None = None,
+                         merkle_hasher: str = "blake3") -> dict:
+    from chip_smoke import ALLOPS_CALLDATA, allops_traces
+    from olavm_tpu.stark.config import StarkConfig
+    from olavm_tpu.stark.prover import prove_with_traces
+    from olavm_tpu.stark.serialization import serialize_all_proof
+
+    from chip_smoke import ALLOPS_K
+
+    k = ALLOPS_K if k is None else k
+    traces, pv, ola, program_sha256 = allops_traces(k, "olavm_tpu")
+    config = StarkConfig.standard_fast_config()
+    config.merkle_hasher = merkle_hasher
+    proof = prove_with_traces(ola, config, traces, public_values=pv)
+    data = serialize_all_proof(proof)
+    record = {"K": k, "calldata": ALLOPS_CALLDATA,
+              "program_sha256": program_sha256}
+    if merkle_hasher != "blake3":
+        record["merkle_hasher"] = merkle_hasher
+    record.update({
+        "table_shapes": [list(t.shape) for t in traces],
+        "public_values": {
+            "pre_root": [int(x) for x in pv.pre_state_root],
+            "post_root": [int(x) for x in pv.post_state_root]},
+        "proof_sha256": hashlib.sha256(data).hexdigest(),
+        "proof_bytes": len(data),
+    })
+    return record
+
+
+def allops_full_golden_record() -> dict:
+    from chip_smoke import ALLOPS_K_FULL
+
+    return allops_golden_record(ALLOPS_K_FULL)
+
+
 RECORDS = {
     GOLDEN: golden_record,
     GOLDEN_POSEIDON: lambda: golden_record(merkle_hasher="poseidon"),
     GOLDEN_CLI: cli_golden_record,
     GOLDEN_NODE: node_golden_record,
+    GOLDEN_ALLOPS: allops_golden_record,
+    GOLDEN_ALLOPS_POSEIDON: lambda: allops_golden_record(
+        merkle_hasher="poseidon"),
+    GOLDEN_ALLOPS_FULL: allops_full_golden_record,
     **{path: functools.partial(full_golden_record, hasher)
        for hasher, path in GOLDEN_FULL.items()},
 }
@@ -138,7 +182,9 @@ RECORDS = {
 @pytest.mark.parametrize("path", sorted(RECORDS), ids=os.path.basename)
 def test_golden_matches_reference_prover(path):
     with open(path) as f:
-        assert RECORDS[path]() == json.load(f)
+        want = json.load(f)
+    want.pop("host_prover", None)  # the time and memory it took to make
+    assert RECORDS[path]() == want
 
 
 if __name__ == "__main__":
@@ -151,20 +197,41 @@ if __name__ == "__main__":
                         help="rewrite this hasher's full-size golden only")
     parser.add_argument("--node", action="store_true",
                         help="rewrite the node golden only")
+    parser.add_argument("--allops", type=int, metavar="K",
+                        help="rewrite the instruction-set goldens at K loop "
+                             "iterations: chip_smoke.ALLOPS_K (both hashers) "
+                             "or chip_smoke.ALLOPS_K_FULL (blake3)")
     args = parser.parse_args()
     # the repository root, for chip_smoke
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
+    from chip_smoke import ALLOPS_K, ALLOPS_K_FULL
+
     jax.config.update("jax_platforms", "cpu")
-    paths = ([GOLDEN_FULL[args.full]] if args.full else [GOLDEN_NODE]
-             if args.node else [GOLDEN, GOLDEN_POSEIDON, GOLDEN_CLI])
+    if args.allops is not None:
+        if args.allops not in (ALLOPS_K, ALLOPS_K_FULL):
+            parser.error(f"--allops takes {ALLOPS_K} or {ALLOPS_K_FULL}")
+        paths = ([GOLDEN_ALLOPS, GOLDEN_ALLOPS_POSEIDON]
+                 if args.allops == ALLOPS_K else [GOLDEN_ALLOPS_FULL])
+    elif args.full:
+        paths = [GOLDEN_FULL[args.full]]
+    elif args.node:
+        paths = [GOLDEN_NODE]
+    else:
+        paths = [GOLDEN, GOLDEN_POSEIDON, GOLDEN_CLI]
     for path in paths:
         t0 = time.perf_counter()
         result = RECORDS[path]()
+        seconds = time.perf_counter() - t0
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB
+        if path in (GOLDEN_ALLOPS, GOLDEN_ALLOPS_POSEIDON, GOLDEN_ALLOPS_FULL):
+            # what olavm_tpu's host prover took, on this host's cores
+            result["host_prover"] = {
+                "seconds": round(seconds, 1), "peak_resident_gib":
+                round(peak, 2), "cpu_count": os.cpu_count()}
         with open(path, "w") as f:
             json.dump(result, f, indent=1)
             f.write("\n")
-        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB
-        print(f"{os.path.basename(path)}: {time.perf_counter() - t0:.1f} s, "
+        print(f"{os.path.basename(path)}: {seconds:.1f} s, "
               f"peak resident {peak:.2f} GiB so far")

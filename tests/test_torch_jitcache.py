@@ -3,7 +3,9 @@ device prover's bank-driven programs, on the CPU, where a program is its
 function called directly:
 
 - key discipline: one program per key, a graph per input signature, clear()
-  drops them, and the launch counters that replays feed;
+  drops them, the launch counters that replays feed, and the buffer rule:
+  a later prove that outgrows a buffer frees the earlier proves' graphs
+  that read it;
 - no challenge is baked into a program: each program kind that a ToySystem
   prove makes (quotient class, CTL Z, permutation Z, FRI fold, FRI
   composition, the openings' power table) issues the same torch ops, with
@@ -50,6 +52,7 @@ from olavm_tpu_torch.stark.stark_base import (
 from olavm_tpu_torch.utils import jitcache
 
 from test_stark_framework import ToySystem, build_traces
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 # ---------------------------------------------------------------------------
 # key discipline and launch counts
@@ -89,6 +92,62 @@ def test_cpu_program_is_its_function_called_directly():
     # no graph on the CPU: nothing captured, nothing replayed
     assert jitcache.stats()["('direct',)"]["captures"] == 0
     assert prog.graphs == {}
+    jitcache.clear()
+
+
+class _Unrun:
+    """Stands in for a captured CUDA graph: records its reset."""
+
+    def __init__(self):
+        self.was_reset = False
+
+    def reset(self):
+        self.was_reset = True
+
+    def replay(self):
+        pass
+
+
+def _graph(key, *inputs):
+    """A graph of the program of `key` over these inputs, as a capture
+    would record it: its input views in the shared buffers."""
+    prog = jitcache.cached_jit(key, None)
+    slots = [jitcache._view("in", i, t) for i, t in enumerate(inputs)]
+    graph = prog.graphs[tuple(t.shape for t in inputs)] = jitcache._Graph(
+        _Unrun(), slots, [], {}, 0, 0.0, 0)
+    return graph
+
+
+def test_a_later_prove_that_outgrows_a_buffer_frees_earlier_graphs():
+    """The buffer rule (jitcache.begin_prove): a buffer outgrown within a
+    prove stays for the graphs that read it; one outgrown by a later prove
+    is freed, with every graph that reads that buffer position and that
+    the later prove has not used, and the other graphs stay."""
+    jitcache.clear()
+    words = lambda n: torch.zeros(n, dtype=torch.int64)  # noqa: E731
+    jitcache.begin_prove()
+    a = _graph(("a",), words(8))
+    b = _graph(("b",), words(16), words(4))  # grows input 0 in the prove
+    f = _graph(("f",), torch.zeros(64, dtype=torch.float32))
+    r = _graph(("r",), words(4))
+    assert not a.graph.was_reset  # it keeps its outgrown buffer
+    assert jitcache.buffer_bytes() == (8 + 16 + 4) * 8 + 64 * 4
+    jitcache.begin_prove()
+    r.replay([words(4)])  # used by this prove too: it stays
+    c = _graph(("c",), words(8))  # fits the buffer: nothing dropped
+    assert not (a.graph.was_reset or b.graph.was_reset)
+    d = _graph(("d",), words(2), words(32))  # outgrows input 1
+    assert b.graph.was_reset and not a.graph.was_reset
+    e = _graph(("e",), words(64))  # outgrows input 0
+    assert a.graph.was_reset
+    kept = {k: s for k, s in jitcache.stats().items() if s["dropped"] == 0}
+    assert sorted(kept) == ["('c',)", "('d',)", "('e',)", "('f',)",
+                            "('r',)"]
+    assert [jitcache._PROGRAMS[(k,)].graphs for k in "ab"] == [{}, {}]
+    assert not any(g.graph.was_reset for g in (c, d, e, f, r))
+    # the outgrown buffers that no graph of this prove reads are held no
+    # more (r and c read the 16-word buffer of input 0)
+    assert jitcache.buffer_bytes() == (16 + 32 + 64) * 8 + 64 * 4
     jitcache.clear()
 
 

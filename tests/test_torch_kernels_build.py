@@ -7,6 +7,7 @@ import os
 import pytest
 
 from olavm_tpu_torch import kernels
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 
 @pytest.fixture

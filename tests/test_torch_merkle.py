@@ -36,6 +36,7 @@ from olavm_tpu_torch.hash import blake3 as tb3
 from olavm_tpu_torch.hash import poseidon as tpos
 from olavm_tpu_torch.merkle import device as tmerkle
 from olavm_tpu_torch.stark.oracle_device import DevicePolynomialBatch
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 
 def _blake3(data: bytes) -> bytes:

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from chip_smoke import NODE_CALLEE, NODE_CALLER, node_tx
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 PACKAGES = ("olavm_tpu", "olavm_tpu_torch")

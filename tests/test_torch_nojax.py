@@ -3,7 +3,8 @@ jaxlib AND the olavm_tpu package refused, and the main path (the fib-loop
 fixture's execute and trace generation, then a ToySystem-sized prove and
 verify on the CPU path, and the same prove sharded over a one-rank group)
 runs in that state or, where both are installed,
-without loading either. No source of the port imports jax or olavm_tpu or
+without loading either; so does the interpreter path (run_program_full and
+generate_traces on the instruction-set fixture). No source of the port imports jax or olavm_tpu or
 reads a file out of olavm_tpu/, and importing the port leaves the reference
 package's host libraries as they are.
 
@@ -18,6 +19,7 @@ import sys
 import textwrap
 
 import pytest
+import torch_threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,6 +85,14 @@ NODE_TX = """
 from chip_smoke import node_tx
 node, trace, traces, pv, ola = node_tx()
 result["node"] = [len(trace.sc_call), len(traces)]
+"""
+
+ALLOPS_TRACE_GEN = """
+# the interpreter path (run_program_full -> generate_traces) on the
+# instruction-set fixture
+from chip_smoke import ALLOPS_K, allops_traces
+traces, pv, ola, program_sha256 = allops_traces(ALLOPS_K)
+result["allops_shapes"] = [list(t.shape) for t in traces]
 """
 
 TOY_PROVE = """
@@ -183,6 +193,7 @@ def _run(*parts: str) -> dict:
             "    if m.split('.')[0] == 'olavm_tpu')\n"
             "print(json.dumps(result))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = str(torch_threads.THREADS)
     code = head + "".join(textwrap.dedent(p) for p in parts) + tail
     out = subprocess.run([sys.executable, "-c", code],
                          capture_output=True, text=True, timeout=240, cwd=ROOT,
@@ -201,6 +212,13 @@ def test_port_imports_and_runs_with_jax_refused():
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
     assert res["node"] == [1, 12]
     assert res["verified"] and res["sharded_equal"] and res["eager_equal"]
+    assert res["jax_loaded"] == [] and res["reference_loaded"] == []
+
+
+def test_interpreter_path_runs_with_jax_refused():
+    res = _run(REFUSE_JAX_AND_REFERENCE, ALLOPS_TRACE_GEN)
+    assert len(res["allops_shapes"]) == 12
+    assert res["allops_shapes"][5] == [134, 1 << 13]  # PoseidonStark
     assert res["jax_loaded"] == [] and res["reference_loaded"] == []
 
 

@@ -14,6 +14,7 @@ from olavm_tpu.ntt import ntt as jntt
 from olavm_tpu.ntt import pallas_ntt
 from olavm_tpu_torch import convert
 from olavm_tpu_torch.ntt import ntt as tntt
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 P = g.P
 

@@ -15,6 +15,7 @@ from olavm_tpu_torch.hash import poseidon as tpos
 from olavm_tpu_torch.stark.prover_device import fri_pow_device
 
 from test_reference_vectors import POSEIDON_VECTORS
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 
 @pytest.mark.parametrize("idx", range(len(POSEIDON_VECTORS)))

@@ -21,6 +21,7 @@ from olavm_tpu.hash import poseidon as jpos
 from olavm_tpu.hash.hashers import by_name
 from olavm_tpu_torch import kernels
 from olavm_tpu_torch.hash import poseidon as tpos
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 P = 2**64 - 2**32 + 1
 M64 = 2**64 - 1

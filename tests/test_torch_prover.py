@@ -28,6 +28,7 @@ from olavm_tpu_torch.stark import verifier as tverifier
 from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
 
 from test_stark_framework import ToySystem, build_traces
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 
 def _configs(pow_bits, merkle_hasher="blake3"):

@@ -23,6 +23,8 @@ All values are exact field or hash arithmetic: tolerance 0. jax and
 olavm_tpu are imported inside the tests only: the ranks import this module,
 and must load neither."""
 
+import dataclasses
+import functools
 import sys
 
 import numpy as np
@@ -33,19 +35,15 @@ from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.field import goldilocks as g
 from olavm_tpu_torch.parallel import sharded as psh
 from olavm_tpu_torch.stark.config import FriConfig, MeshConfig, StarkConfig
-from olavm_tpu_torch.stark.cross_table_lookup import (
-    Column,
-    CrossTableLookup,
-    TableWithColumns,
-)
 from olavm_tpu_torch.stark.oracle_device import DevicePolynomialBatch
 from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
 from olavm_tpu_torch.stark.serialization import (
     deserialize_all_proof,
     serialize_all_proof,
 )
-from olavm_tpu_torch.stark.stark_base import PermutationPair, Stark
 from olavm_tpu_torch.stark.verifier import verify_proof
+import torch_threads  # noqa: F401  (torch's share of the cores)
+from torch_toy_system import ToySystem, build_traces
 
 P = g.P
 CAP_HEIGHT = 4
@@ -63,68 +61,6 @@ POW_BITS = 8
 ALPHAS = [3, 5]
 # the quotient window: 64 x 8 rows of CmpStark
 WINDOW_ROWS = 64 * 8
-
-
-# ToySystem (tests/test_stark_framework.py) built from the port's classes,
-# so that the ranks need nothing of olavm_tpu; test_sharded_proof_bytes holds
-# its proofs to olavm_tpu's host prover on the original
-
-
-class FibStark(Stark):
-    """Columns: [a, b, c, c_rev]; a'=b, b'=a+b; c_rev is a permutation of c."""
-
-    COLUMNS = 4
-
-    def eval_packed(self, local, nxt, consumer):
-        F = consumer.F
-        consumer.constraint_first_row(F.sub(local[0], F.constant(1)))
-        consumer.constraint_first_row(F.sub(local[1], F.constant(1)))
-        consumer.constraint_transition(F.sub(nxt[0], local[1]))
-        consumer.constraint_transition(F.sub(nxt[1], F.add(local[0], local[1])))
-
-    def constraint_degree(self):
-        return 3
-
-    def permutation_pairs(self):
-        return [PermutationPair.singletons(2, 3)]
-
-
-class CopyStark(Stark):
-    """Single column, no constraints of its own (CTL-bound to FibStark.a)."""
-
-    COLUMNS = 1
-
-    def eval_packed(self, local, nxt, consumer):
-        pass
-
-    def constraint_degree(self):
-        return 3
-
-
-class ToySystem:
-    def __init__(self):
-        self.starks = [FibStark(), CopyStark()]
-        self.cross_table_lookups = [
-            CrossTableLookup(
-                looking_tables=[TableWithColumns(0, [Column.single(0)], None)],
-                looked_table=TableWithColumns(1, [Column.single(0)], None),
-            )
-        ]
-
-    def compress_challenges(self):
-        return [0, 0]
-
-
-def build_traces(n):
-    a = np.zeros(n, dtype=np.uint64)
-    b = np.zeros(n, dtype=np.uint64)
-    a[0], b[0] = 1, 1
-    for i in range(1, n):
-        a[i] = b[i - 1]
-        b[i] = g.add(int(a[i - 1]), int(b[i - 1]))
-    rng = np.random.RandomState(0)
-    c = rng.randint(0, 1 << 32, size=n).astype(np.uint64)
-    return [np.stack([a, b, c, c[::-1].copy()]), a.copy().reshape(1, n)]
 
 
 def _config(hasher):
@@ -229,16 +165,26 @@ def test_mesh_shape_matches_reference(n):
         assert all(r["shape"] == psh.mesh_shape(n) for r in _group(n))
 
 
-@pytest.mark.parametrize("world", GROUPS)
-@pytest.mark.parametrize("case", COMMITS, ids=str)
-def test_sharded_commit_equals_single_device(world, case):
+@functools.lru_cache(maxsize=None)
+def _single_device_commit(case):
+    """The port's single-device commit of a case (coefficients, digest
+    levels, cap) and olavm_tpu's host cap, made once for every group size."""
     from olavm_tpu.hash.hashers import by_name
     from olavm_tpu.stark.oracle import PolynomialBatch
 
     hasher, _, _, rate_bits = case
     values = _commit_values(case)
-    coeffs, levels, cap = _batch_host(DevicePolynomialBatch.from_values(
+    single = _batch_host(DevicePolynomialBatch.from_values(
         gf.from_u64(values, "cpu"), rate_bits, CAP_HEIGHT, hasher))
+    host = PolynomialBatch.from_values(values, rate_bits, CAP_HEIGHT,
+                                       hasher=by_name(hasher))
+    return single, np.asarray(host.cap, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("world", GROUPS)
+@pytest.mark.parametrize("case", COMMITS, ids=str)
+def test_sharded_commit_equals_single_device(world, case):
+    (coeffs, levels, cap), host_cap = _single_device_commit(case)
     for got_coeffs, got_levels, got_cap in (
             r["commits"][case] for r in _group(world)):
         np.testing.assert_array_equal(got_coeffs, coeffs)
@@ -246,9 +192,7 @@ def test_sharded_commit_equals_single_device(world, case):
         for a, b in zip(got_levels, levels):
             np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(got_cap, cap)
-    host = PolynomialBatch.from_values(values, rate_bits, CAP_HEIGHT,
-                                       hasher=by_name(hasher))
-    np.testing.assert_array_equal(cap, np.asarray(host.cap, dtype=np.uint64))
+    np.testing.assert_array_equal(cap, host_cap)
 
 
 @pytest.mark.parametrize("case", REFERENCE_SHARDED, ids=str)
@@ -296,8 +240,10 @@ def test_quotient_eval_fn_matches_reference(world, reference_quotient):
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("world,hasher", PROVES)
-def test_sharded_proof_bytes(world, hasher, single_proofs):
+@functools.lru_cache(maxsize=None)
+def _host_proof(hasher):
+    """olavm_tpu's host prover on its ToySystem, serialized, once per
+    hasher."""
     from olavm_tpu.stark import config as jconfig
     from olavm_tpu.stark.prover import prove_with_traces
     from olavm_tpu.stark.serialization import (
@@ -305,13 +251,17 @@ def test_sharded_proof_bytes(world, hasher, single_proofs):
     )
     from test_stark_framework import ToySystem as JToySystem
 
+    return j_serialize(prove_with_traces(JToySystem(), jconfig.StarkConfig(
+        fri_config=jconfig.FriConfig(proof_of_work_bits=POW_BITS),
+        merkle_hasher=hasher), build_traces(DEGREE)))
+
+
+@pytest.mark.parametrize("world,hasher", PROVES)
+def test_sharded_proof_bytes(world, hasher, single_proofs):
     data = [r["proofs"][hasher][0] for r in _group(world)]
     assert all(d == data[0] for d in data)
     assert data[0] == single_proofs[hasher]
-    host = prove_with_traces(JToySystem(), jconfig.StarkConfig(
-        fri_config=jconfig.FriConfig(proof_of_work_bits=POW_BITS),
-        merkle_hasher=hasher), build_traces(DEGREE))
-    assert data[0] == j_serialize(host)
+    assert data[0] == _host_proof(hasher)
 
 
 @pytest.mark.parametrize("world,hasher", PROVES)
@@ -367,3 +317,35 @@ def test_run_ranks_raises_a_ranks_error():
 
     with pytest.raises(ProcessRaisedException, match="rank one fails"):
         psh.run_ranks(_fail_on_rank_one, 2, "gloo", "cpu")
+
+
+def test_dryrun_prove_step_over_gloo(capsys):
+    # olavm_tpu's dryrun_prove_step on the port: a gloo group of two ranks
+    # proves the port's ToySystem, every rank's bytes equal the single-device
+    # proof's and the proof verifies (8 PoW bits, as the proves above)
+    psh.dryrun_prove_step(2, config=_config("blake3"))
+    assert "proof-bytes-equal=True, verified=True" in capsys.readouterr().out
+
+
+def test_dryrun_prove_step_needs_a_card_per_rank():
+    # one rank per card: more ranks than cards fail before any rank starts
+    config = dataclasses.replace(_config("blake3"), mesh=MeshConfig(
+        backend="nccl", device_type="cuda"))
+    with pytest.raises(ValueError, match="one rank per card"):
+        psh.dryrun_prove_step(torch.cuda.device_count() + 1, config=config)
+
+
+def test_dryrun_toy_system_leaves_torch_threads_as_they_are():
+    # the dry run's ToySystem module sets no thread count in the caller
+    before = torch.get_num_threads()
+    loaded = sys.modules.pop("torch_toy_system")
+    torch.set_num_threads(1 if before > 1 else 2)
+    try:
+        want = torch.get_num_threads()
+        toy = psh._toy_system()
+        assert toy is not loaded
+        assert "pytest" not in vars(toy) and "torch_threads" not in vars(toy)
+        assert torch.get_num_threads() == want
+    finally:
+        sys.modules["torch_toy_system"] = loaded
+        torch.set_num_threads(before)

@@ -29,6 +29,7 @@ from olavm_tpu_torch.field import goldilocks as g
 from olavm_tpu_torch.merkle import device as dmerkle
 from olavm_tpu_torch.ntt import ntt as dntt
 from olavm_tpu_torch.stark.oracle_device import DevicePolynomialBatch
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P = g.P

@@ -14,6 +14,7 @@ from olavm_tpu_torch.tables import fast_gen as tfast_gen
 from olavm_tpu_torch.tables import ola_stark as tola_stark
 
 from chip_smoke import write_fib_program
+import torch_threads  # noqa: F401  (torch's share of the cores)
 
 
 def test_fixture_traces_equal_reference():
