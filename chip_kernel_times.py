@@ -7,6 +7,7 @@ kernels.
     python3 chip_kernel_times.py --kernel poseidon  # libposeidon's kernels only
     python3 chip_kernel_times.py --kernel absorb    # the streamed commit's
     python3 chip_kernel_times.py --kernel eval      # K5
+    python3 chip_kernel_times.py --kernel quotient  # the quotient's classes
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
 after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
@@ -23,6 +24,13 @@ prove and a few more), "device_ms" the same calls' kernel time from
 torch.profiler (below ~0.05 ms a call, CUDA events time the host that
 issues it), and "ms_per_column" at (C, 2^20) x 28 for C = 1, 8 and 94. The whole disassembly of each
 built library goes to chip_smoke_out/<source>.sass.
+For `quotient`, "elementwise" holds K3, add and sub per launch on 1-D
+operands of 1 to 2^21 elements (CUDA-event ms of back-to-back calls,
+device ms from torch.profiler, the bound), and "classes" one quotient
+class of each table at N=94000's shapes and K=512's PoseidonStark and
+StorageAccessStark (chip_smoke.QUOTIENT_SHAPES) replayed as the prover's
+program, op by op and through K6: ms per replay, device ms, and the
+launches of one replay.
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -57,10 +65,16 @@ SHAPES = {
     # the FRI query leaves of the CpuStark trace at 2^22 rows, and C = 1 and
     # 8 columns at 2^20 x 28 for the time per column
     "eval": ((94, 1 << 22, 28), (1, 1 << 20, 28), (8, 1 << 20, 28)),
+    # K3, add and sub on 1-D operands of the sizes the quotient's launches
+    # have (the one-element challenge products, the small tables' columns,
+    # the large tables' columns); the tables' classes: chip_smoke.QUOTIENT_SHAPES
+    "quotient": (1, 2, 4, 256, 1024, 1 << 17, 1 << 18, 1 << 19, 1 << 20,
+                 1 << 21),
 }
 # the csrc sources that hold each choice's kernels
 LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
-        "absorb": ("blake3", "poseidon"), "eval": ("eval",)}
+        "absorb": ("blake3", "poseidon"), "eval": ("eval",),
+        "quotient": ("gf_mul", "ntt", "quotient")}
 # libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
 # the FRI trees' arity-16 extension leaves, one permutation per leaf) and
 # tree levels of n digests
@@ -209,6 +223,8 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return time_absorb(gen, cuda_ms)
     if kernel == "eval":
         return time_eval(gen, cuda_ms)
+    if kernel == "quotient":
+        return time_quotient(gen, cuda_ms)
     if kernel == "ntt":
         from olavm_tpu_torch.ntt import ntt as dntt
 
@@ -289,29 +305,89 @@ def time_eval(gen, cuda_ms) -> dict:
         key = f"{C}x{_log2(n)} at {k}"
         ms[key] = cuda_ms(lambda: gf.eval_points(coeffs, pows),
                           10 if C * n >= 1 << 22 else 200)
-        device_ms[key] = _device_ms(lambda: gf.eval_points(coeffs, pows), 10)
+        device_ms[key] = chip_smoke.device_ms(lambda: gf.eval_points(coeffs, pows), 10)
         del coeffs, pows
     return {"ms": ms, "device_ms": device_ms, "ms_per_column": {
         C: ms[f"{C}x2^20 at 28"] / C for C in (1, 8, 94)}}
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of the kernels `fn` launches, from
-    torch.profiler: at shapes where a call takes less than the host needs
-    to issue it, CUDA events around back-to-back calls time the host."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def time_quotient(gen, cuda_ms) -> dict:
+    """K3, add and sub per launch at SHAPES["quotient"] sizes, each with its
+    bound (chip_smoke.bound); then one quotient class of each table of
+    chip_smoke.QUOTIENT_SHAPES as the prover runs it, a program replay
+    (the class's coset FFTs and constraints, its inputs copied into the
+    graph's buffers and its output out), op by op (quotient_class_ops,
+    "ops") and through K6 ("k6"): CUDA-event ms per replay, the device ms
+    of its kernels and copies (torch.profiler), and the launches of one
+    replay by kernel."""
+    import functools
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / 1e3 / reps
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.stark import prover_device as tpd
+    from olavm_tpu_torch.utils import jitcache
+
+    binops = {"gf_mul": (gf.mul, chip_smoke.OPS_MUL, chip_smoke.MUL_PRODUCT),
+              "gf_add": (gf.add, chip_smoke.OPS_ADD, 0),
+              "gf_sub": (gf.sub, chip_smoke.OPS_ADD, 0)}
+    elementwise = {}
+    for n in SHAPES["quotient"]:
+        a = torch.randint(0, 1 << 62, (n,), generator=gen, device="cuda")
+        b = torch.randint(0, 1 << 62, (n,), generator=gen, device="cuda")
+        for name, (fn, ops, mul) in binops.items():
+            reps = 2000 if n <= 1 << 12 else 200
+            least = chip_smoke.bound(24 * n, ops * n, mul * n)
+            elementwise[f"{name} {n}"] = {
+                "ms": cuda_ms(lambda: fn(a, b), reps),
+                "device_ms": chip_smoke.device_ms(lambda: fn(a, b), 50),
+                "bound_ms": least["bound_ms"], "bound_by": least["bound_by"]}
+    from olavm_tpu_torch.stark.config import StarkConfig
+    from olavm_tpu_torch.tables.ola_stark import OlaStark
+
+    ola = OlaStark()
+    ola.set_compress_challenges(list(range(1, len(ola.starks) + 1)))
+    tpd.prebuild_quotient_kernels(ola, StarkConfig.standard_fast_config())
+    rng = np.random.default_rng(0)
+    classes = {}
+    for table, degree in chip_smoke.QUOTIENT_SHAPES:
+        case = chip_smoke.quotient_case(table, degree, rng,
+                                        torch.device("cuda", 0))
+        stark, static = case["stark"], case["static"]
+        name = type(stark).__name__
+        qdb = tpd.quotient_degree_bits(stark, case["config"])
+        cls = tpd.class_constants(degree.bit_length() - 1, qdb, 1, "cuda")
+        k6 = tpd.quotient_kernels(stark, case["coeffs"].shape[0],
+                                  case["zs_coeffs"].shape[0], **static)
+        pool = gf.from_u64(k6.tape.pool, "cuda")
+        row = {"zs": case["zs_coeffs"].shape[0], "classes": 1 << qdb,
+               "slices": len(k6.cuts)}
+        # the op-by-op class (the parent's program) and K6's, each as the
+        # prover replays it
+        for mode, fn, args in (
+                ("ops", tpd.quotient_class_ops,
+                 (case["coeffs"], case["zs_coeffs"], cls, case["bank"])),
+                ("k6", tpd._class_program,
+                 (case["coeffs"], case["zs_coeffs"], cls, pool, case["bank"]))):
+            program = jitcache.cached_jit(
+                ("qclass-timed", mode, name, degree),
+                functools.partial(fn, stark, **static))
+            program(*args)  # the warm-up and the capture
+            kernels.reset_launches()
+            program(*args)
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            reps = 3 if degree >= 1 << 19 else 20
+            row[mode] = {
+                "ms": cuda_ms(lambda: program(*args), reps),
+                "device_ms": chip_smoke.device_ms(lambda: program(*args), 2),
+                "launches": launches}
+            jitcache.clear()
+        classes[f"{name} ({case['coeffs'].shape[0]}, {_log2(degree)})"] = row
+        del case, args
+    return {"elementwise": elementwise, "classes": classes}
 
 
 if __name__ == "__main__":

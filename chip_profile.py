@@ -17,7 +17,8 @@ device time of every kernel by name and counts the kernels. That sum,
 card's machine moves by tens of percent between runs. The busy share is the
 sum over each untraced warm prove's seconds, as a [low, high] range. Per
 prove it also gives the launches of the port's kernels that the host issued
-and those that graph replays ran, and the peak device memory, allocated and
+and those that graph replays ran, those that the quotient's programs ran
+(and one replay of each by kernel), and the peak device memory, allocated and
 reserved (the graphs' shared pool is reserved memory that allocations
 outside the graphs cannot use, so the reserved peak is given beside the
 allocated one), with the programs' buffers and pool. Prints one JSON object
@@ -57,8 +58,18 @@ def main() -> int:
     import chip_smoke
     from olavm_tpu_torch import kernels
     from olavm_tpu_torch.stark.config import StarkConfig
+    from olavm_tpu_torch.stark import prover_device
     from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
     from olavm_tpu_torch.stark.serialization import serialize_all_proof
+    from olavm_tpu_torch.utils import jitcache
+
+    def quotient_kernels() -> dict:
+        out = {}
+        for st in jitcache.stats().values():
+            if st["tag"] == "qclass":
+                for k, v in st.get("kernels", {}).items():
+                    out[k] = out.get(k, 0) + v
+        return out
 
     smi = chip_smoke.nvidia_smi()
     kernels.build(force=True)
@@ -66,11 +77,15 @@ def main() -> int:
         trace_dir = os.path.join(workdir, "full")
         chip_smoke.prepare(chip_smoke.FULL_N, workdir, trace_dir)
         traces, public_values, ola, _ = chip_smoke.load_traces(trace_dir)
-    device = torch.device("cuda", 0)
     config = StarkConfig.standard_fast_config()
     config.merkle_hasher = args.hasher
+    t0 = time.perf_counter()
+    prover_device.prebuild_quotient_kernels(ola, config)
+    k6_build_seconds = time.perf_counter() - t0
+    device = torch.device("cuda", 0)
 
     def prove(programs: bool) -> dict:
+        before = jitcache.stats()
         kernels.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -82,11 +97,17 @@ def main() -> int:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         host = sum(kernels.HOST_LAUNCHES.values())
+        by_tag = chip_smoke.program_counts(before, jitcache.stats())["by_tag"]
         run = {
             "programs": programs, "seconds": seconds,
             "host_issued_launches": host,
             "replayed_launches": sum(kernels.LAUNCHES.values()) - host,
             "launches": dict(kernels.LAUNCHES),
+            # the quotient's programs: launches their replays ran, and of
+            # one replay of each by kernel
+            "quotient_replayed_launches": by_tag.get(
+                "qclass", {}).get("replayed_launches", 0),
+            "quotient_kernels": quotient_kernels(),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
             "program_memory_bytes": chip_smoke.program_memory(),
@@ -123,7 +144,8 @@ def main() -> int:
     if len(digests) != 1:
         raise AssertionError(f"the proves differ: {sorted(digests)}")
     result = {"card": smi, "torch": torch.__version__, "N": chip_smoke.FULL_N,
-              "merkle_hasher": args.hasher, "proof_sha256": digests.pop()}
+              "merkle_hasher": args.hasher, "proof_sha256": digests.pop(),
+              "k6_build_seconds": k6_build_seconds}
     for mode, programs in (("eager", False), ("programs", True)):
         warm = [r for r in runs[2:] if r["programs"] == programs]
         seconds = [r["seconds"] for r in warm]
@@ -138,6 +160,10 @@ def main() -> int:
             "busy_share_warm": [device_seconds / max(seconds),
                                 device_seconds / min(seconds)],
             "host_issued_launches": [r["host_issued_launches"] for r in warm],
+            "launches": [sum(r["launches"].values()) for r in warm],
+            "quotient_replayed_launches": [r["quotient_replayed_launches"]
+                                           for r in warm],
+            "quotient_kernels_one_replay_each": warm[-1]["quotient_kernels"],
             "replayed_launches": [r["replayed_launches"] for r in warm],
             "peak_memory_bytes": [r["peak_memory_bytes"] for r in warm],
             "peak_reserved_bytes": [r["peak_reserved_bytes"] for r in warm],

@@ -7,7 +7,9 @@ Phases, in order; each raises on failure and the script then exits nonzero
 without printing a result:
 
 1. environment: the card's name and power limit; build every kernel of
-   olavm_tpu_torch/csrc with nvcc (one process per source, in parallel);
+   olavm_tpu_torch/csrc with nvcc (one process per source, in parallel),
+   then K6, the 12 tables' generated constraint kernels
+   (stark/constraint_codegen.py), one nvcc per table, in parallel;
 2. each kernel against its plain PyTorch version on the card, bit-exact
    (tolerance 0: every value is exact field or hash arithmetic), with
    CUDA-event times of both and the least time the card could take for the
@@ -16,7 +18,12 @@ without printing a result:
    width class (a streamed leaf hash also against the one-shot leaf kernel,
    at (94, 2^23) too), K5 at every edge of its launch plan and at every
    shape of an N=94000 prove (K5_SHAPES), timed at (94, 2^20) x 28 and x 4
-   points;
+   points; K6 on one residue class of each table at N=94000's shapes and
+   K=512's PoseidonStark (134, 2^20) and StorageAccessStark (48, 2^19)
+   (QUOTIENT_SHAPES): the class (coset scaling, K1, selectors, K6) against
+   the op-by-op quotient_class_ops and the slices against their plain
+   version, exactly, each timed, with K6's bound; the coset scaling and
+   selector kernels against their plain versions at (94, 2^20);
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card four times on one trace generation, as a capture and a replay with
    each Merkle hasher: with blake3 caps (its programs captured), then
@@ -77,9 +84,10 @@ kernel's launch count is reset just before it and read just after it (in
 the rank's own process), counting the launches the host issued and those
 that graph replays ran (each capture records its graph's launches, and
 each replay adds them); the run must have launched its
-hasher's kernels (K1, K2, K3, add, sub, K5 and the hasher's leaf, absorb and
-level kernels), none of the other hasher's, and its leaf and absorb kernels
-as often as its commits' shapes need. Each records prove and verify seconds
+hasher's kernels (K1, K2, K3, add, sub, K5, K6 with the coset scaling and
+selector kernels, and the hasher's leaf, absorb and level kernels), none of
+the other hasher's, no K3, add or sub inside a quotient program, and its
+leaf and absorb kernels as often as its commits' shapes need. Each records prove and verify seconds
 (a group verifies on rank 0), peak device memory and the host's peak
 resident memory.
 
@@ -350,6 +358,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of the kernels `fn` launches, from
+    torch.profiler: at shapes where a call takes less than the host needs
+    to issue it, CUDA events around back-to-back calls time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0.0)
+                   for e in prof.key_averages())
+    return total_us / 1e3 / reps
 
 
 def bound(nbytes: float, int_ops: float, mul: float = 0, alu: float = 0) -> dict:
@@ -795,6 +822,158 @@ def check_stream_kernels(device, rng) -> dict:
     return results
 
 
+def plain_by_rows(k6, inp, rows: int = 1 << 16):
+    """K6's plain version (constraint_tape.evaluate_plain) on windows of
+    `rows` rows at a time, each window's next rows gathered for it: the
+    same values as on all rows at once, in a fraction of the memory (a
+    slice's cone of CpuStark at 2^20 rows would take tens of GB)."""
+    import torch
+
+    from olavm_tpu_torch.stark import constraint_tape as ct
+
+    m = inp.rows
+    nxt = (torch.arange(m, device=inp.sel.device) + inp.nshift) % m
+    parts = []
+    for lo in range(0, m, rows):
+        hi = min(m, lo + rows)
+        zh = inp.zh_inv if inp.zh_inv.numel() == 1 else inp.zh_inv[lo:hi]
+        parts.append(ct.evaluate_plain(k6.tape, k6.cuts, ct.Inputs(
+            inp.lv[:, lo:hi], inp.nv[:, nxt[lo:hi]], inp.zl[:, lo:hi],
+            inp.zn[:, nxt[lo:hi]], 0, inp.sel[:, lo:hi], inp.bank, inp.pool,
+            zh)))
+    return torch.cat(parts, dim=1)
+
+
+def k6_bound(k6, inp) -> dict:
+    """K6's least time for one class: its input columns read once (the
+    trace and Z values, the selectors) and the accumulators written, or the
+    field operations that the quotient needs (constraint_tape.required_ops:
+    each node once, no product by a pooled 0 or 1, the Horner steps) at
+    bound()'s rates. Beside it the operations the slices run
+    (constraint_tape.slice_ops: a node in every slice whose cone holds it,
+    the products by 0 and 1) and the share of those that the quotient does
+    not need."""
+    from olavm_tpu_torch.stark import constraint_tape as ct
+
+    m = inp.rows
+    cols = inp.lv.shape[0] + inp.zl.shape[0] + inp.sel.shape[0]
+    ops = ct.required_ops(k6.tape)
+    run = dict.fromkeys(ct.COMPUTE, 0)
+    for a, b in k6.cuts:
+        for kind, v in ct.slice_ops(k6.tape, a, b).items():
+            run[kind] += v
+    small = ops["add"] + ops["sub"] + ops["neg"] + ops["ieq"]
+    least = bound(8 * m * (cols + k6.tape.num_alphas),
+                  m * (ops["mul"] * OPS_MUL + small * OPS_ADD),
+                  m * ops["mul"] * MUL_PRODUCT)
+    return {**least, "field_ops_per_row": ops, "kernel_field_ops_per_row": run,
+            "kernel_ops_not_needed": 1 - sum(ops.values()) / sum(run.values())}
+
+
+def check_quotient_kernels(device, rng) -> dict:
+    """K6 and the quotient's fixed kernels on the card. For one residue
+    class of each table of QUOTIENT_SHAPES (N=94000's tables and K=512's
+    PoseidonStark and StorageAccessStark): the class through quotient_class
+    (gl_scale_powers, K1, gl_quotient_selectors, the K6 slices) against
+    quotient_class_ops, the op-by-op quotient of K3, add and sub, exactly,
+    and the K6 slices alone against their plain version (plain_by_rows),
+    with the times of each and K6's bound; the fixed kernels against their
+    plain versions at CpuStark's (94, 2^20), their "ms" the device time
+    (device_ms: the selectors take less time than a call needs to issue).
+    The kernel line's K6 entry is CpuStark's class at (94, 2^20)."""
+    import torch
+
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.stark import constraint_codegen as cg
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    results, tables = {}, {}
+    for table, degree in QUOTIENT_SHAPES:
+        case = quotient_case(table, degree, rng, device)
+        stark, coeffs, zs = case["stark"], case["coeffs"], case["zs_coeffs"]
+        bits = degree.bit_length() - 1
+        name = f"{type(stark).__name__} ({coeffs.shape[0]}, 2^{bits})"
+        k6 = tpd.quotient_kernels(stark, coeffs.shape[0], zs.shape[0],
+                                  **case["static"])
+        pool = gf.from_u64(k6.tape.pool, device)
+        qdb = tpd.quotient_degree_bits(stark, case["config"])
+        cls = tpd.class_constants(degree.bit_length() - 1, qdb, 1, device)
+        args = (stark, coeffs, zs, cls)
+        inp = tpd.quotient_inputs(coeffs, zs, cls, case["bank"], pool)
+        got = {}
+        k6_ms = cuda_ms(lambda: got.__setitem__("k6", cg.evaluate(k6, inp)),
+                        3 if degree >= 1 << 19 else 20)
+        class_ms = cuda_ms(lambda: got.__setitem__("class", tpd.quotient_class(
+            *args, case["bank"], pool, **case["static"])),
+            3 if degree >= 1 << 19 else 20)
+        ops_ms = cuda_ms(lambda: got.__setitem__("ops", tpd.quotient_class_ops(
+            *args, case["bank"], **case["static"])),
+            2 if degree >= 1 << 19 else 5)
+        timed_plain = table == 0
+        plain_ms = (cuda_ms(lambda: got.__setitem__("plain", plain_by_rows(
+            k6, inp)), 1) if timed_plain else None)
+        if not timed_plain:
+            got["plain"] = plain_by_rows(k6, inp)
+        err = max(max_abs_err(got["class"], got["ops"]),
+                  max_abs_err(got["k6"], got["ops"]),
+                  max_abs_err(got["k6"], got["plain"]))
+        least = k6_bound(k6, inp)
+        tables[name] = {
+            "slices": len(k6.cuts), "max_abs_err": err, "k6_ms": k6_ms,
+            "class_ms": class_ms, "ops_ms": ops_ms, "plain_ms": plain_ms,
+            "bound_ms": least["bound_ms"], "bound_by": least["bound_by"],
+            "share": least["bound_ms"] / k6_ms,
+            "field_ops_per_row": least["field_ops_per_row"],
+            "kernel_field_ops_per_row": least["kernel_field_ops_per_row"],
+            "kernel_ops_not_needed": least["kernel_ops_not_needed"]}
+        log(f"  K6 {name}: {len(k6.cuts)} slices, max_abs_err={err} (class "
+            f"against quotient_class_ops, slices against their plain "
+            f"version), slices {k6_ms:.4f} ms, class {class_ms:.4f} ms, "
+            f"op by op {ops_ms:.4f} ms, plain {plain_ms}, bound "
+            f"{least['bound_ms']:.4f} ms by {least['bound_by']}, "
+            f"{least['kernel_ops_not_needed']:.3f} of the slices' operations "
+            f"not needed")
+        if err != 0:
+            raise AssertionError(f"K6 {name} disagrees")
+        if table == 0 and degree == FULL_CPU_ROWS:
+            results["constraints"] = {
+                "max_abs_err": err, "ms": k6_ms, "plain_ms": plain_ms,
+                **least, "library_ms": None,
+                "checked": f"{name} class 1; every table's class in k6_tables"}
+            x, base = coeffs, cls[0]
+            for kname, fn, plain, least in (
+                    ("scale_powers", lambda: cg.scale_powers(x, base),
+                     lambda: cg.scale_powers_plain(x, base),
+                     bound(16 * x.numel(), OPS_MUL * (x.numel() + degree),
+                           MUL_PRODUCT * (x.numel() + degree))),
+                    ("quotient_selectors",
+                     lambda: cg.selectors(cls, degree.bit_length() - 1),
+                     lambda: cg.selectors_plain(cls, degree.bit_length() - 1),
+                     bound(24 * degree, OPS_MUL * SELECTOR_PRODUCTS * degree,
+                           MUL_PRODUCT * SELECTOR_PRODUCTS * degree))):
+                out = {}
+                event_ms = cuda_ms(lambda: out.__setitem__("k", fn()), 10)
+                ms = device_ms(fn, 10)
+                plain_ms = cuda_ms(lambda: out.__setitem__("p", plain()), 1)
+                err = max_abs_err(out["k"], out["p"])
+                results[kname] = {"max_abs_err": err, "ms": ms,
+                                  "event_ms": event_ms,
+                                  "plain_ms": plain_ms, **least,
+                                  "library_ms": None,
+                                  "checked": f"{name} class 1"}
+                log(f"  {kname}: max_abs_err={err} kernel {ms:.4f} ms "
+                    f"(device; {event_ms:.4f} ms a call by CUDA events), "
+                    f"plain {plain_ms:.4f} ms, bound "
+                    f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
+                if err != 0:
+                    raise AssertionError(f"{kname} disagrees with its plain "
+                                         f"version")
+        del case, coeffs, zs, inp, got, args
+        torch.cuda.empty_cache()
+    results["k6_tables"] = tables
+    return results
+
+
 def time_plain_steps(device, rng) -> dict:
     """Card times of the main-path steps that stay plain torch in this
     version (each becomes a hand-written kernel later)."""
@@ -1147,7 +1326,11 @@ def cli_path(workdir: str) -> dict:
 # the kernels of each full-size path: each must launch on its own path, and
 # the other Merkle hasher's kernels must not
 SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub",
-                  "eval_points")
+                  "eval_points", "constraints", "scale_powers",
+                  "quotient_selectors")
+# kernels that the quotient's programs must not launch: K6 and its fixed
+# kernels took their place
+NOT_IN_QUOTIENT = ("gf_mul", "gf_add", "gf_sub")
 PATH_KERNELS = {
     "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level",
                                 "blake3_absorb"),
@@ -1167,6 +1350,49 @@ K5_TABLES = (
 K5_SHAPES = tuple(sorted({(C, n, k) for n, widths in K5_TABLES
                           for C, ks in zip(widths, ((28, 4), (28, 4), (28, 2)))
                           for k in ks}))
+FULL_CPU_ROWS = 1 << 20  # CpuStark's rows at N=94000
+# products per point that the selector columns need: two inverses by batch
+# inversion (about 3 products each) and the Lagrange numerators
+SELECTOR_PRODUCTS = 2 * 3 + 2
+# the quotient's tables: (OlaStark table index, degree) at N=94000 (every
+# table, K5_TABLES' order) and K=512's PoseidonStark and StorageAccessStark
+QUOTIENT_SHAPES = tuple((t, n) for t, (n, _) in enumerate(K5_TABLES)) + (
+    (5, 1 << 20), (7, 1 << 19))
+
+
+def quotient_case(table: int, degree: int, rng, device) -> dict:
+    """One table's quotient inputs at `degree` rows, random from `rng`: the
+    trace and Z coefficients (made on the card), compress challenges, and
+    the bank of alphas and permutation and CTL challenges with the static
+    metadata that compute_quotient_polys_device gives quotient_class
+    (prover_device.quotient_statics): the keyword arguments under
+    "static", the bank under "bank"."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.stark import prover_device as tpd
+    from olavm_tpu_torch.stark.config import StarkConfig
+    from olavm_tpu_torch.tables.ola_stark import OlaStark
+
+    def field(k):
+        return [int(v) for v in rng.integers(0, gf.P, k, dtype=np.uint64)]
+
+    config = StarkConfig.standard_fast_config()
+    ola = OlaStark()
+    ola.set_compress_challenges(field(len(ola.starks)))
+    stark, nz, static, values = tpd.quotient_statics(
+        ola, config, lambda: field(1)[0])[table]
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+    return {
+        "stark": stark, "config": config, "degree": degree,
+        "coeffs": torch.randint(0, 1 << 62, (stark.COLUMNS, degree),
+                                generator=gen, device=device),
+        "zs_coeffs": torch.randint(0, 1 << 62, (nz, degree), generator=gen,
+                                   device=device),
+        "bank": gf.from_u64(values, device), "static": static}
+
+
 # the goldens of each path: olavm_tpu's host prover on the same program
 # (tests/test_torch_golden.py), at N=10 and at FULL_N
 GOLDENS = {
@@ -1342,6 +1568,13 @@ KERNELS = (
      "olavm_tpu/merkle/device.py:141", ("poseidon_absorb",)),
     ("eval_points", "cuda", "olavm_tpu_torch/csrc/eval.cu",
      "olavm_tpu/stark/oracle_device.py:335", ("eval_points",)),
+    ("constraints", "cuda",
+     "olavm_tpu_torch/stark/constraint_codegen.py (csrc/constraints.cuh)",
+     "olavm_tpu/stark/prover_device.py:276", ("constraints",)),
+    ("scale_powers", "cuda", "olavm_tpu_torch/csrc/quotient.cu",
+     "olavm_tpu/stark/prover_device.py:318", ("scale_powers",)),
+    ("quotient_selectors", "cuda", "olavm_tpu_torch/csrc/quotient.cu",
+     "olavm_tpu/stark/prover_device.py:175", ("quotient_selectors",)),
 )
 
 
@@ -1370,6 +1603,21 @@ def run() -> int:
     built = kernels.build(force=True)
     report["build_seconds"] = time.perf_counter() - t0
     log(f"[1] built {sorted(built)} in {report['build_seconds']:.1f} s")
+    # K6: every table's generated source at once (the sources depend on no
+    # challenge, so any compress challenges give the prove's)
+    from olavm_tpu_torch.stark import prover_device as tpd
+    from olavm_tpu_torch.stark.config import StarkConfig
+    from olavm_tpu_torch.tables.ola_stark import OlaStark
+
+    ola = OlaStark()
+    ola.set_compress_challenges(list(range(1, len(ola.starks) + 1)))
+    t0 = time.perf_counter()
+    report["k6_build_seconds_each"] = tpd.prebuild_quotient_kernels(
+        ola, StarkConfig.standard_fast_config())
+    report["k6_build_seconds"] = time.perf_counter() - t0
+    log(f"[1] built K6 for the 12 tables "
+        f"({len(report['k6_build_seconds_each'])} sources) in "
+        f"{report['k6_build_seconds']:.1f} s")
     # registers, shared memory and spills of every kernel, as ptxas reports them
     report["ptxas"] = {
         name: [ln for ln in text.splitlines()
@@ -1385,6 +1633,7 @@ def run() -> int:
         f"(at {time.perf_counter() - started:.1f} s)")
     report["kernels"] = check_kernels(device, rng)
     report["kernels"].update(check_stream_kernels(device, rng))
+    report["kernels"].update(check_quotient_kernels(device, rng))
     report["plain_steps_ms"] = time_plain_steps(device, rng)
     torch.cuda.empty_cache()
 
@@ -1407,6 +1656,12 @@ def run() -> int:
                         or not rep["programs"]["replays"]):
             raise AssertionError(f"{label}: must replay programs captured "
                                  f"by an earlier prove, ran {rep['programs']}")
+        in_quotient = {k: st["kernels"] for k, st in jitcache.stats().items()
+                       if st["tag"] == "qclass"
+                       and any(n in st["kernels"] for n in NOT_IN_QUOTIENT)}
+        if in_quotient:
+            raise AssertionError(f"{label}: quotient programs launch "
+                                 f"{NOT_IN_QUOTIENT}: {in_quotient}")
         rep["host_peak_resident_bytes"] = host_peak_resident()
         rep["merkle_hashing"] = check_path_launches(
             launches, hasher, prepared[2], rep["table_shapes"])
@@ -1575,6 +1830,10 @@ def run() -> int:
     print(json.dumps({"ns_per_permutation": {
         name: report["kernels"][name]["ms"] * 1e6 / perms
         for name, perms in report["kernels"]["permutations"].items()}}))
+    print(json.dumps({"k6_tables": {
+        name: {k: row[k] for k in ("slices", "k6_ms", "class_ms", "ops_ms",
+                                   "bound_ms", "bound_by", "share")}
+        for name, row in report["kernels"]["k6_tables"].items()}}))
     print(json.dumps(kernel_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ Each source in csrc/ is compiled by nvcc for sm_90a into its own shared
 library with a plain C interface, and loaded with ctypes (no PyTorch headers,
 so a build takes seconds). The build runs at first use, into _build/ beside
 this file (listed in .gitignore); `build()` compiles all sources at once, one
-nvcc process per source.
+nvcc process per source. K6's sources are generated per table
+(stark/constraint_codegen.py): `build_generated` writes each into _build/
+under a name made from the sha256 of its text and compiles them the same
+way, and `generated` loads one.
 
 Every C entry point launches on the stream it is given and returns the CUDA
 error code of its launches; `check` raises on a nonzero code. Each kernel
@@ -19,6 +22,7 @@ which adds them to `LAUNCHES` on every replay (`add_replayed`).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -31,7 +35,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("blake3", "eval", "gf_mul", "ntt", "poseidon")
+SOURCES = ("blake3", "eval", "gf_mul", "ntt", "poseidon", "quotient")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
             "blake3_leaves": 0, "blake3_level": 0, "blake3_absorb": 0,
             "poseidon_leaves": 0, "poseidon_level": 0, "poseidon_absorb": 0,
-            "eval_points": 0}
+            "eval_points": 0, "constraints": 0, "scale_powers": 0,
+            "quotient_selectors": 0}
 # kernel name -> launches the host issued itself since the last reset (a
 # replayed program's launches are counted in LAUNCHES only)
 HOST_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
@@ -47,7 +52,8 @@ HOST_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 _recording: list = []
 
 # source name -> what nvcc printed when it was last built here (ptxas -v:
-# registers, shared memory and spills of every kernel)
+# registers, shared memory and spills of every kernel), the generated
+# sources' too
 BUILD_LOG: dict = {}
 
 _libs: dict = {}
@@ -80,6 +86,11 @@ _SIGNATURES = {
         "gl_poseidon_leaves": [_VP, _VP, _I64, _INT, _VP],
         "gl_poseidon_level": [_VP, _VP, _I64, _VP],
         "gl_poseidon_absorb": [_VP, _VP, _VP, _VP, _I64, _INT, _VP],
+    },
+    "quotient": {
+        "gl_scale_powers": [_VP, _VP, _VP, _I64, _I64, _VP],
+        "gl_quotient_selectors": [_VP, _VP, _I64, ctypes.c_uint64,
+                                  ctypes.c_uint64, _VP],
     },
 }
 
@@ -133,15 +144,43 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _stale(name: str) -> bool:
+def _stale(name: str, source: Path | None = None) -> bool:
     """The library is missing, or older than its source or than any header in
     csrc/ (a source may include any of them)."""
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    newest = max(p.stat().st_mtime for p in
-                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    source = source or CSRC / f"{name}.cu"
+    newest = max(p.stat().st_mtime for p in [source, *CSRC.glob("*.cuh")])
     return lib.stat().st_mtime < newest
+
+
+def _compile(jobs: dict) -> dict:
+    """nvcc each {name: source path} into lib<name>.so, all at once; returns
+    seconds per source and raises with nvcc's output of every failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, source in jobs.items():
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(source)]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    times, errors = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = out.decode(errors="replace")
+        if proc.returncode != 0:
+            errors.append(f"nvcc {Path(jobs[name]).name} failed:\n"
+                          f"{BUILD_LOG[name]}")
+            continue
+        os.replace(tmp, _lib_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return times
 
 
 def build(names=SOURCES, force: bool = False) -> dict:
@@ -151,27 +190,50 @@ def build(names=SOURCES, force: bool = False) -> dict:
     todo = [n for n in names if force or _stale(n)]
     if not todo:
         return {}
+    return _compile({n: CSRC / f"{n}.cu" for n in todo})
+
+
+def generated_name(prefix: str, text: str) -> str:
+    """The library name of a generated source: its prefix and the sha256 of
+    its text."""
+    return f"{prefix}_{hashlib.sha256(text.encode()).hexdigest()[:20]}"
+
+
+def build_generated(sources: dict) -> dict:
+    """Compile generated sources {name: CUDA text} (names from
+    generated_name) where the library is neither loaded nor built after
+    every csrc/ header, all at once, one nvcc each, writing each text into
+    _build/ first. Returns seconds per built source; raises with nvcc's output if
+    any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
-    for name in todo:
-        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    times, errors = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = out.decode(errors="replace")
-        if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed:\n{BUILD_LOG[name]}")
+    jobs = {}
+    for name, text in sources.items():
+        if name in _libs:  # built and loaded in this process
             continue
-        os.replace(tmp, _lib_path(name))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return times
+        path = BUILD_DIR / f"{name}.cu"
+        if not path.exists() or path.read_text() != text:
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, path)
+        if _stale(name, path):
+            jobs[name] = path
+    if not jobs:
+        return {}
+    return _compile(jobs)
+
+
+def generated(name: str, text: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of a generated source, built first if needed;
+    `signatures` {function: argtypes}, each returning an int."""
+    with _lock:
+        if name not in _libs:
+            build_generated({name: text})
+            handle = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(handle, fn).argtypes = argtypes
+                getattr(handle, fn).restype = _INT
+            _libs[name] = handle
+        return _libs[name]
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -57,9 +57,7 @@ from ..field import gf
 from ..field import goldilocks as g
 from ..merkle import device as dmerkle
 from ..ntt import ntt as dntt
-from ..stark.consumer import ConstraintConsumer
 from ..stark.oracle_device import DevicePolynomialBatch
-from ..stark.ops import TorchOps
 from ..utils.bits import log2_strict, reverse_bits
 
 # sharded phase -> times this process ran it since reset_phases()
@@ -301,28 +299,40 @@ class ShardedOracle:
 
 
 def quotient_eval_fn(mesh, stark, alphas: list[int]):
-    """Row-block-sharded evaluation of `stark.eval_packed` (through
-    TorchOps, the single-device quotient's adapter) over coset points,
-    accumulated with `alphas` and times the Z_H inverse column.
+    """Row-block-sharded evaluation of `stark.eval_packed` over coset
+    points, accumulated with `alphas` and times the Z_H inverse column, as
+    the single-device quotient runs it: the table's K6 slices
+    (stark/constraint_codegen.py) on a card, their plain version on the
+    CPU.
 
     The returned fn(local, nxt, z_last, lagrange_first, lagrange_last,
     zh_inv) takes (R, C) trace windows at x and g*x and (R,) selector and
     Z_H^{-1} columns, the same on every rank; each rank evaluates its
-    contiguous R/W rows and one all_gather gives every rank the
-    len(alphas) (R,) columns."""
+    contiguous R/W rows, the next row of each taken from `nxt` (across its
+    block's end too), and one all_gather gives every rank the len(alphas)
+    (R,) columns."""
+    from ..stark import constraint_codegen as cg
+    from ..stark import constraint_tape as ct
+    from ..stark import prover_device
+
+    C = stark.COLUMNS
+    # emit_constraints with no permutation or CTL column: eval_packed alone
+    k6 = prover_device.quotient_kernels(
+        stark, C, 0, num_alphas=len(alphas), perm_meta=(), ctl_views=[],
+        ctl_offsets=(), num_permutation_zs=0)
+
     def fn(local, nxt, z_last, lagrange_first, lagrange_last, zh_inv):
         device = local.device
-        F = TorchOps(device)
+        bank = gf.from_u64(alphas, device)
+        pool = gf.from_u64(k6.tape.pool, device)
 
         def rows(lo, hi):
-            lv, nv = local[lo:hi].T.contiguous(), nxt[lo:hi].T.contiguous()
-            consumer = ConstraintConsumer(
-                F, [gf.scalar(a, device) for a in alphas], z_last[lo:hi],
-                lagrange_first[lo:hi], lagrange_last[lo:hi])
-            stark.eval_packed(list(lv[:stark.COLUMNS]),
-                              list(nv[:stark.COLUMNS]), consumer)
-            return torch.stack([gf.mul(acc.expand(hi - lo), zh_inv[lo:hi])
-                                for acc in consumer.accumulators()])
+            no_zs = gf.zeros((0, hi - lo), device)
+            return cg.evaluate(k6, ct.Inputs(
+                local[lo:hi, :C].T, nxt[lo:hi, :C].T, no_zs, no_zs, 0,
+                torch.stack([z_last[lo:hi], lagrange_first[lo:hi],
+                             lagrange_last[lo:hi]]),
+                bank, pool, zh_inv[lo:hi]))
 
         return list(shard_map_cat(mesh, "quotient", local.shape[0], rows,
                                   dim=1))
@@ -401,10 +411,11 @@ def dryrun_prove_step(n_devices: int, config=None) -> None:
     olavm_tpu/parallel/sharded.py's dryrun_prove_step. ToySystem is the
     port's own (tests/torch_toy_system.py). `config` None is
     standard_fast_config. The ranks and the single-device prove run on
-    `config.mesh.device_type`; where the config names no mesh, on one rank
-    per card (NCCL) when a card is present, else on gloo ranks on the CPU.
-    On the cards, n_devices may not exceed the cards present (NCCL refuses
-    two ranks on one card)."""
+    `config.mesh.device_type`; where the config names no mesh, on the
+    cards, one rank per card (NCCL), and without a card it raises before
+    any rank starts: the CPU is asked for with a config whose mesh is
+    MeshConfig(device_type="cpu") (gloo ranks). On the cards, n_devices may
+    not exceed the cards present (NCCL refuses two ranks on one card)."""
     import dataclasses
 
     from ..stark.config import MeshConfig, StarkConfig
@@ -414,8 +425,13 @@ def dryrun_prove_step(n_devices: int, config=None) -> None:
 
     config = config or StarkConfig.standard_fast_config()
     if config.mesh is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dryrun_prove_step: no CUDA device is available; pass a "
+                "config with mesh=MeshConfig(device_type=\"cpu\") to run "
+                "the ranks on the host")
         config = dataclasses.replace(config, mesh=MeshConfig(
-            device_type="cuda" if torch.cuda.is_available() else "cpu"))
+            device_type="cuda"))
     device_type = config.mesh.device_type
     if device_type == "cuda" and n_devices > torch.cuda.device_count():
         raise ValueError(

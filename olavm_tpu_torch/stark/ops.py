@@ -4,9 +4,10 @@ not carried).
 
 - BaseOps: host quotient evaluation for the host prover (stark/prover.py)
   over numpy uint64 arrays (carried unchanged);
-- TorchOps: device quotient evaluation over int64 tensors (field/gf.py), so
-  the same eval_packed code runs on the card: every product on a CUDA
-  tensor launches K3;
+- TorchOps: quotient evaluation op by op over int64 tensors (field/gf.py):
+  every product on a CUDA tensor launches K3. The device prover records the
+  same code through constraint_tape.TapeOps and runs it as K6; TorchOps
+  runs prover_device.quotient_class_ops, the yardstick K6 is held to;
 - ExtOps: verifier evaluation at zeta over (2,) extension elements (carried
   unchanged).
 """

@@ -9,18 +9,21 @@ runs on the given torch device.
               blake3 or Poseidon leaf states -> Merkle levels (oracle_device;
               only the coefficients and the tree stay resident)
   Z polys   = log-depth grand products (ctl_device)
-  quotient  = each table's own eval_packed, run through TorchOps over each
-              residue class of the quotient coset in one pass, the class's
-              values one coset FFT of the coefficients
+  quotient  = each table's constraints (eval_packed, the permutation and
+              CTL checks) recorded once as a tape and run as K6, fused
+              kernels over slices of its constraint sequence, on each
+              residue class of the quotient coset, the class's values one
+              coset FFT of the coefficients
   openings  = power-table inner products at zeta and g*zeta (K5)
   FRI       = composition poly formed on the coefficients, one coset LDE,
               fold, re-FFT, extension-leaf trees, the Poseidon PoW grind
               (K2), query leaves evaluated at their points (K5)
 
-On a CUDA device the products launch K3, the transforms K1, the grind K2
-and the evaluations K5; the Merkle hashing launches the blake3 kernels (K4
-and its absorb) or the Poseidon leaf, absorb and level kernels, as
-config.merkle_hasher says.
+On a CUDA device the quotient's constraints launch K6 (and its coset
+scaling and selectors, csrc/quotient.cu), the remaining products K3, the
+transforms K1, the grind K2 and the evaluations K5; the Merkle hashing
+launches the blake3 kernels (K4 and its absorb) or the Poseidon leaf,
+absorb and level kernels, as config.merkle_hasher says.
 
 The Z polys, each quotient class, the openings' power tables, the FRI
 composition and each fold and re-FFT are programs (utils/jitcache.py): on
@@ -81,6 +84,8 @@ from .fri import (
     FriQueryStep,
     _reduce_with_alpha,
 )
+from . import constraint_codegen as cg
+from . import constraint_tape as ct
 from .oracle_device import (
     DevicePolynomialBatch,
     build_tree_device,
@@ -172,16 +177,84 @@ def emit_ctls(consumer, lv, nv, zs_local, zs_next, bank, ctl_views,
     eval_cross_table_lookup_checks(lv, nv, ctl_vars, consumer)
 
 
-def quotient_class(stark, coeffs, zs_coeffs, cls, bank, *, num_alphas: int,
-                   perm_meta, ctl_views, ctl_offsets, num_permutation_zs: int
-                   ) -> torch.Tensor:
+def emit_constraints(stark, consumer, F, lv, nv, zl, zn, bank, *,
+                     perm_meta, ctl_views, ctl_offsets,
+                     num_permutation_zs: int) -> None:
+    """A table's quotient constraints in the host prover's order: its
+    eval_packed, the permutation checks, the CTL checks."""
+    stark.eval_packed(lv, nv, consumer)
+    emit_perm(consumer, F, lv, zl, zn, bank, perm_meta, num_permutation_zs)
+    emit_ctls(consumer, lv, nv, zl, zn, bank, ctl_views, ctl_offsets,
+              num_permutation_zs)
+
+
+def quotient_kernels(stark, n_cols: int, n_zs: int, *, num_alphas: int,
+                     perm_meta, ctl_views, ctl_offsets,
+                     num_permutation_zs: int) -> cg.Kernels:
+    """The table's K6 (stark/constraint_codegen.py): emit_constraints
+    recorded as a tape (stark/constraint_tape.py) over n_cols trace and
+    n_zs Z columns, its slices and their source; cached by what the
+    qclass program key holds of the table."""
+    static = {"perm_meta": perm_meta, "ctl_views": ctl_views,
+              "ctl_offsets": ctl_offsets,
+              "num_permutation_zs": num_permutation_zs}
+    key = ("qclass", _stark_key(stark), n_cols, n_zs, num_alphas, perm_meta,
+           _ctl_sigs(ctl_views), ctl_offsets, num_permutation_zs)
+    return cg.cached_kernels(key, type(stark).__name__, lambda: ct.record(
+        functools.partial(emit_constraints, stark, **static), n_cols, n_zs,
+        num_alphas))
+
+
+def _ctl_sigs(ctl_views) -> tuple:
+    return tuple((tuple(column_sig(c) for c in cols), column_sig(filt))
+                 for cols, filt in ctl_views)
+
+
+def quotient_class(stark, coeffs, zs_coeffs, cls, bank, pool=None, *,
+                   num_alphas: int, perm_meta, ctl_views, ctl_offsets,
+                   num_permutation_zs: int) -> torch.Tensor:
     """(num_alphas, n) quotient values on one residue class: the class's
-    coset values of the trace and Z polynomials (coset FFTs of their
-    coefficients), the table's constraints (eval_packed, the permutation
-    checks, the CTL checks, in the host prover's order) and the Z_H
-    inverse. `cls` holds the class's constants [shift, c/n, c g^{-1}/n,
-    1/c] with c = shift^n - 1, and `bank` the challenges (quotient_bank),
-    so one program serves every class and every prove."""
+    coset values of the trace and Z polynomials (the coefficients scaled by
+    shift^i, gl_scale_powers, then K1), its selector columns
+    (gl_quotient_selectors), and the table's constraints with the alphas
+    and the Z_H inverse as the slices of its K6 (quotient_kernels), whose
+    pooled constants `pool` holds (None: made here from the tape, outside a
+    program only). `cls` holds the class's constants [shift, c/n, c
+    g^{-1}/n, 1/c] with c = shift^n - 1, and `bank` the challenges
+    (quotient_bank), so one program serves every class and every prove. On
+    CPU tensors every step runs its plain version."""
+    k6 = quotient_kernels(
+        stark, coeffs.shape[0], zs_coeffs.shape[0], num_alphas=num_alphas,
+        perm_meta=perm_meta, ctl_views=ctl_views, ctl_offsets=ctl_offsets,
+        num_permutation_zs=num_permutation_zs)
+    if pool is None:
+        pool = gf.from_u64(k6.tape.pool, coeffs.device)
+    return cg.evaluate(k6, quotient_inputs(coeffs, zs_coeffs, cls, bank, pool))
+
+
+def _class_program(stark, coeffs, zs_coeffs, cls, pool, bank, **static):
+    """quotient_class as the qclass program runs it, the challenge bank its
+    last input."""
+    return quotient_class(stark, coeffs, zs_coeffs, cls, bank, pool, **static)
+
+
+def quotient_inputs(coeffs, zs_coeffs, cls, bank, pool) -> ct.Inputs:
+    """A residue class's operands of K6: the trace and Z values on the
+    class's coset (their next row the following one, cyclically), its
+    selector columns, the bank, the pool and 1/c."""
+    degree = coeffs.shape[1]
+    local = dntt.ntt(cg.scale_powers(coeffs, cls[0]))
+    zs_local = dntt.ntt(cg.scale_powers(zs_coeffs, cls[0]))
+    sel = cg.selectors(cls, log2_strict(degree))
+    return ct.Inputs(local, local, zs_local, zs_local, 1 % degree, sel, bank,
+                     pool, cls[3])
+
+
+def quotient_class_ops(stark, coeffs, zs_coeffs, cls, bank, *,
+                       num_alphas: int, perm_meta, ctl_views, ctl_offsets,
+                       num_permutation_zs: int) -> torch.Tensor:
+    """quotient_class op by op through TorchOps (a K3, add or sub launch per
+    field operation on the card): the yardstick that K6 is held to."""
     device = coeffs.device
     F = TorchOps(device)
     degree = coeffs.shape[1]
@@ -202,12 +275,66 @@ def quotient_class(stark, coeffs, zs_coeffs, cls, bank, *, num_alphas: int,
 
     consumer = ConstraintConsumer(F, [bank[i] for i in range(num_alphas)],
                                   z_last, lagrange_first, lagrange_last)
-    stark.eval_packed(lv, nv, consumer)
-    emit_perm(consumer, F, lv, zl, zn, bank, perm_meta, num_permutation_zs)
-    emit_ctls(consumer, lv, nv, zl, zn, bank, ctl_views, ctl_offsets,
-              num_permutation_zs)
+    emit_constraints(stark, consumer, F, lv, nv, zl, zn, bank,
+                     perm_meta=perm_meta, ctl_views=ctl_views,
+                     ctl_offsets=ctl_offsets,
+                     num_permutation_zs=num_permutation_zs)
     return torch.stack([gf.mul(acc.expand(degree), zh_inv)
                         for acc in consumer.accumulators()])
+
+
+def quotient_statics(ola_stark, config, draw=None) -> list:
+    """Per table, (stark, n_zs, static metadata, bank values) as
+    compute_quotient_polys_device gives quotient_class: the keyword
+    arguments (num_alphas, perm_meta, ctl_views, ctl_offsets,
+    num_permutation_zs) and the bank (quotient_bank) of the alphas and the
+    permutation and CTL challenges, each value one call of `draw` (None:
+    every value 0). The metadata depends on which challenge each column
+    group reads, never on its value, so zeros stand in for a prove's
+    challenges where only the metadata is wanted."""
+    from .cross_table_lookup import CtlData, CtlZData
+    from .stark_base import GrandProductChallenge
+
+    draw = draw or (lambda: 0)
+    nc = config.num_challenges
+
+    def challenge_set():
+        return [GrandProductChallenge(draw(), draw()) for _ in range(nc)]
+
+    ctl_challenges = challenge_set()
+    alphas = [draw() for _ in range(nc)]
+    out = []
+    for ti, stark in enumerate(ola_stark.starks):
+        perm = None
+        if stark.uses_permutation_args():
+            perm = [challenge_set()
+                    for _ in range(stark.permutation_batch_size())]
+        num_permutation_zs = (stark.num_permutation_batches(config)
+                              if perm is not None else 0)
+        ctl_data = CtlData()
+        for ctl in ola_stark.cross_table_lookups:
+            for chal in ctl_challenges:
+                for t in (*ctl.looking_tables, ctl.looked_table):
+                    if t.table == ti:
+                        ctl_data.zs_columns.append(CtlZData(
+                            None, chal, t.columns, t.filter_column))
+        values, perm_meta, ctl_offsets = quotient_bank(
+            stark, config, alphas, perm, ctl_data)
+        out.append((stark, num_permutation_zs + len(ctl_data.zs_columns), {
+            "num_alphas": nc, "perm_meta": perm_meta,
+            "ctl_views": [(zc.columns, zc.filter_column)
+                          for zc in ctl_data.zs_columns],
+            "ctl_offsets": ctl_offsets,
+            "num_permutation_zs": num_permutation_zs}, values))
+    return out
+
+
+def prebuild_quotient_kernels(ola_stark, config) -> dict:
+    """Build every table's K6 at once (one nvcc each, where its library is
+    missing); returns seconds per built source."""
+    return cg.prebuild([quotient_kernels(stark, stark.COLUMNS, n_zs, **static)
+                        for stark, n_zs, static, _ in quotient_statics(
+                            ola_stark, config)])
 
 
 def quotient_degree_bits(stark, config) -> int:
@@ -263,19 +390,22 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
         stark, config, alphas, permutation_challenges, ctl_data)
     bank = gf.from_u64(values, device)
     ctl_views = [(zc.columns, zc.filter_column) for zc in ctl_data.zs_columns]
+    static = {"num_alphas": len(alphas), "perm_meta": perm_meta,
+              "ctl_views": ctl_views, "ctl_offsets": ctl_offsets,
+              "num_permutation_zs": num_permutation_zs}
+    # the tape's constants enter the program as an input, as the bank does
+    pool = gf.from_u64(quotient_kernels(
+        stark, trace_batch.coeffs.shape[0], zs_batch.coeffs.shape[0],
+        **static).tape.pool, device)
     key = ("qclass", _stark_key(stark), tuple(trace_batch.coeffs.shape),
            tuple(zs_batch.coeffs.shape), len(alphas), num_permutation_zs,
-           perm_meta,
-           tuple((tuple(column_sig(c) for c in cols), column_sig(filt))
-                 for cols, filt in ctl_views), ctl_offsets)
+           perm_meta, _ctl_sigs(ctl_views), ctl_offsets)
     program = jitcache.cached_jit(key, functools.partial(
-        quotient_class, stark, num_alphas=len(alphas), perm_meta=perm_meta,
-        ctl_views=ctl_views, ctl_offsets=ctl_offsets,
-        num_permutation_zs=num_permutation_zs))
+        _class_program, stark, **static))
 
     def class_values(r: int) -> torch.Tensor:
         cls = class_constants(degree_bits, qdb, r, device)
-        return program(trace_batch.coeffs, zs_batch.coeffs, cls, bank)
+        return program(trace_batch.coeffs, zs_batch.coeffs, cls, pool, bank)
 
     n_classes = 1 << qdb
     if mesh is not None and n_classes % psh.coords(mesh)[1] == 0:
@@ -797,6 +927,9 @@ def _prove_with_traces_device(ola_stark, config, trace_poly_values,
     cap_height = config.fri_config.cap_height
     hasher = config.hasher()
     mesh = getattr(oracle, "mesh", None)
+    if device.type == "cuda":
+        with timing.scope("build quotient kernels"):
+            prebuild_quotient_kernels(ola_stark, config)
 
     with timing.scope("upload traces"):
         values_dev = [gf.from_u64(t, device) for t in trace_poly_values]

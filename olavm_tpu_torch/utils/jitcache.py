@@ -264,7 +264,8 @@ def stats() -> dict:
     dropped (begin_prove), replays, the kernel launches those replays ran,
     capture seconds; and of the graphs it holds now: graph nodes, the bytes
     their captures added to the shared pool, the kernel launches of one
-    replay of each (summed over the key's input shapes)."""
+    replay of each (summed over the key's input shapes), in all and by
+    kernel."""
     out = {}
     for key, prog in _PROGRAMS.items():
         graphs = list(prog.graphs.values())
@@ -277,6 +278,8 @@ def stats() -> dict:
             "nodes": sum(g.nodes for g in graphs),
             "pool_bytes": sum(g.pool_bytes for g in graphs),
             "launches": sum(sum(g.launches.values()) for g in graphs),
+            "kernels": {k: n for k in kernels.LAUNCHES
+                        if (n := sum(g.launches.get(k, 0) for g in graphs))},
             "replayed_launches": prog.replayed_launches,
         }
     return out

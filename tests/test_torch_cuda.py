@@ -572,3 +572,82 @@ def test_a_later_prove_that_outgrows_the_buffers_frees_earlier_graphs(dev):
     assert (st["captures"], st["dropped"], st["replays"]) == (3, 1, 3)
     assert jitcache.buffer_bytes() == 3 * 8 << 20
     jitcache.clear()
+
+
+def _quotient_case(table, degree, dev):
+    import chip_smoke
+
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    case = chip_smoke.quotient_case(table, degree,
+                                    np.random.default_rng(table), dev)
+    qdb = tpd.quotient_degree_bits(case["stark"], case["config"])
+    return case, qdb
+
+
+@pytest.mark.parametrize("table", range(12))
+def test_k6_matches_quotient_class_ops(dev, table):
+    """K6, every class of each table at 2^8 rows and one at 2^13: the
+    slices' launches, and values equal to the op-by-op quotient's."""
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    for degree in (1 << 8, 1 << 13):
+        case, qdb = _quotient_case(table, degree, dev)
+        args = (case["stark"], case["coeffs"], case["zs_coeffs"])
+        k6 = tpd.quotient_kernels(*args[:1], args[1].shape[0],
+                                  args[2].shape[0], **case["static"])
+        # K1's twiddle table, made once per size with K3 products, is not
+        # the class's work: make it before counting
+        tntt.twiddles(degree.bit_length() - 1, False, dev)
+        for r in range(1 << qdb) if degree == 1 << 8 else (1,):
+            cls = tpd.class_constants(degree.bit_length() - 1, qdb, r, dev)
+            kernels.reset_launches()
+            got = tpd.quotient_class(*args, cls, case["bank"], **case["static"])
+            assert kernels.LAUNCHES["constraints"] == len(k6.cuts)
+            assert (kernels.LAUNCHES["scale_powers"],
+                    kernels.LAUNCHES["quotient_selectors"]) == (2, 1)
+            assert not any(kernels.LAUNCHES[k]
+                           for k in ("gf_mul", "gf_add", "gf_sub"))
+            want = tpd.quotient_class_ops(*args, cls, case["bank"],
+                                          **case["static"])
+            assert torch.equal(got, want), (degree, r)
+
+
+@pytest.mark.parametrize("C,n", [(1, 1), (3, 2), (53, 2), (7, 1000),
+                                 (94, 1 << 14), (2, 1 << 21)])
+def test_quotient_fixed_kernels_match_plain(dev, C, n):
+    from olavm_tpu_torch.stark import constraint_codegen as cg
+
+    x = convert.from_u64(_rand((C, n), C), dev)
+    base = convert.from_u64(_rand(1, n), dev)
+    assert torch.equal(cg.scale_powers(x, base),
+                       cg.scale_powers_plain(x, base))
+    if n & (n - 1) == 0 and n <= 1 << 14:
+        bits = n.bit_length() - 1
+        cls = convert.from_u64(_rand(4, bits), dev)
+        assert torch.equal(cg.selectors(cls, bits),
+                           cg.selectors_plain(cls, bits))
+
+
+def test_k6_on_a_row_block_equals_plain(dev):
+    """The sharded quotient_eval_fn's form of K6: explicit next rows
+    (nshift 0) and a Z_H^{-1} column, on the card against the plain
+    version."""
+    from olavm_tpu_torch.stark import constraint_codegen as cg
+    from olavm_tpu_torch.stark import constraint_tape as ct
+    from olavm_tpu_torch.tables.cpu import CpuStark
+
+    stark = CpuStark()
+    tape = ct.record(lambda consumer, F, lv, nv, zl, zn, bank:
+                     stark.eval_packed(lv, nv, consumer), stark.COLUMNS, 0, 2)
+    k6 = cg.Kernels("CpuStark", tape)
+    m = 3000
+    cols = [convert.from_u64(_rand((stark.COLUMNS, m), s), dev) for s in (1, 2)]
+    none = gf.zeros((0, m), dev)
+    inp = ct.Inputs(cols[0], cols[1], none, none, 0,
+                    convert.from_u64(_rand((3, m), 3), dev),
+                    convert.from_u64(_rand(2, 4), dev),
+                    gf.from_u64(tape.pool, dev),
+                    convert.from_u64(_rand(m, 5), dev))
+    want = ct.evaluate_plain(tape, k6.cuts, inp)
+    assert torch.equal(cg.evaluate(k6, inp), want)

@@ -49,7 +49,8 @@ result["entry_points"] = sorted(set(names) & {
     "olavm_tpu_torch.utils.trace_analyzer", "olavm_tpu_torch.node.olavm",
     "olavm_tpu_torch.state.node_state", "olavm_tpu_torch.state.store",
     "olavm_tpu_torch.parallel", "olavm_tpu_torch.parallel.sharded",
-    "olavm_tpu_torch.utils.jitcache"})
+    "olavm_tpu_torch.utils.jitcache", "olavm_tpu_torch.stark.constraint_tape",
+    "olavm_tpu_torch.stark.constraint_codegen"})
 """
 
 REFERENCE_NATIVE = """
@@ -206,9 +207,9 @@ def test_port_imports_and_runs_with_jax_refused():
     res = _run(REFUSE_JAX_AND_REFERENCE, IMPORT_ALL, TRACE_GEN, NODE_TX,
                TOY_PROVE, SHARDED_PROVE)
     assert res["modules"] >= 84
-    # the host prover, the CLI's, the node's, the sharded prover's and the
-    # program layer's modules, among them
-    assert len(res["entry_points"]) == 11
+    # the host prover, the CLI's, the node's, the sharded prover's, the
+    # program layer's and K6's modules, among them
+    assert len(res["entry_points"]) == 13
     assert len(res["shapes"]) == 12 and res["shapes"][0] == [94, 128]
     assert res["node"] == [1, 12]
     assert res["verified"] and res["sharded_equal"] and res["eager_equal"]

@@ -335,6 +335,19 @@ def test_dryrun_prove_step_needs_a_card_per_rank():
         psh.dryrun_prove_step(torch.cuda.device_count() + 1, config=config)
 
 
+def test_dryrun_prove_step_without_a_mesh_needs_a_card(monkeypatch):
+    # no mesh in the config and no card: it raises, naming the CPU mesh to
+    # ask for, before any rank is spawned
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(psh, "run_ranks", _no_ranks)
+    with pytest.raises(RuntimeError, match=r'MeshConfig\(device_type="cpu"\)'):
+        psh.dryrun_prove_step(2)
+
+
+def _no_ranks(*args, **kwargs):
+    raise AssertionError("a rank was spawned")
+
+
 def test_dryrun_toy_system_leaves_torch_threads_as_they_are():
     # the dry run's ToySystem module sets no thread count in the caller
     before = torch.get_num_threads()
