@@ -30,7 +30,11 @@ device ms from torch.profiler, the bound), and "classes" one quotient
 class of each table at N=94000's shapes and K=512's PoseidonStark and
 StorageAccessStark (chip_smoke.QUOTIENT_SHAPES) replayed as the prover's
 program, op by op and through K6: ms per replay, device ms, and the
-launches of one replay.
+launches of one replay; and "k6", K6 alone on each of those classes (ptxas
+registers and spills per slice, warps an SM, scratch columns, operations
+run against constraint_tape.required_ops, ms against its bound), each
+checked against quotient_class_ops, with the SWEEP of its slice budget and
+live values beside the kept constants.
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -364,7 +368,7 @@ def time_quotient(gen, cuda_ms) -> dict:
                                   case["zs_coeffs"].shape[0], **static)
         pool = gf.from_u64(k6.tape.pool, "cuda")
         row = {"zs": case["zs_coeffs"].shape[0], "classes": 1 << qdb,
-               "slices": len(k6.cuts)}
+               "slices": len(k6.plan.slices)}
         # the op-by-op class (the parent's program) and K6's, each as the
         # prover replays it
         for mode, fn, args in (
@@ -387,7 +391,94 @@ def time_quotient(gen, cuda_ms) -> dict:
             jitcache.clear()
         classes[f"{name} ({case['coeffs'].shape[0]}, {_log2(degree)})"] = row
         del case, args
-    return {"elementwise": elementwise, "classes": classes}
+    return {"elementwise": elementwise, "classes": classes,
+            "k6": time_k6(gen, cuda_ms)}
+
+
+# K6's sweep on one class of every table of chip_smoke.QUOTIENT_SHAPES:
+# (slice budget, live values) around the kept constants
+# (constraint_tape.SLICE_OPS, SLICE_LIVE)
+SWEEP = ((100, 24), (150, 24), (250, 24), (300, 24), (500, 24), (1000, 24),
+         (200, 20), (200, 28))
+
+
+def _k6_row(k6, inp, cuda_ms) -> dict:
+    """One K6's slices at one class: ptxas registers and spills, warps an
+    SM, the scratch columns, its operations against required_ops, its ms
+    (CUDA events, the constant table and every slice) and its bound."""
+    import chip_smoke
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.stark import constraint_codegen as cg
+    from olavm_tpu_torch.stark import constraint_tape as ct
+
+    k6.library()
+    least = chip_smoke.k6_bound(k6, inp)
+    blocks = k6.occupancy()
+    ms = cuda_ms(lambda: cg.evaluate(k6, inp),
+                 3 if inp.rows >= 1 << 19 else 20)
+    return {"slices": len(k6.plan.slices), "scratch": k6.plan.scratch,
+            "ptxas": chip_smoke.ptxas_slices(kernels.BUILD_LOG.get(k6.name,
+                                                                   "")),
+            "warps_per_sm": [b * 128 // 32 for b in blocks],
+            "ops_run": ct.plan_ops(k6.plan),
+            "ops_required": ct.required_ops(k6.graph),
+            "ops_not_needed": least["kernel_ops_not_needed"],
+            "ms": ms, "bound_ms": least["bound_ms"],
+            "bound_by": least["bound_by"], "share": least["bound_ms"] / ms}
+
+
+def time_k6(gen, cuda_ms) -> dict:
+    """K6 alone on one class of each table of chip_smoke.QUOTIENT_SHAPES
+    (_k6_row), and the SWEEP there, every source built at once first."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.stark import constraint_codegen as cg
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    rng = np.random.default_rng(1)
+    cases, built = [], []
+    for table, degree in chip_smoke.QUOTIENT_SHAPES:
+        case = chip_smoke.quotient_case(table, degree, rng,
+                                        torch.device("cuda", 0))
+        k6 = tpd.quotient_kernels(case["stark"], case["coeffs"].shape[0],
+                                  case["zs_coeffs"].shape[0], **case["static"])
+        sweep = {key: cg.Kernels(k6.table, k6.tape, *key) for key in SWEEP}
+        cases.append((table, degree, case, k6, sweep))
+        built += [k6, *sweep.values()]
+    seconds = cg.prebuild(built)
+    out = {}
+    for table, degree, case, k6, sweep in cases:
+        qdb = tpd.quotient_degree_bits(case["stark"], case["config"])
+        cls = tpd.class_constants(degree.bit_length() - 1, qdb, 1, "cuda")
+        pool = gf.from_u64(k6.tape.pool, "cuda")
+        inp = tpd.quotient_inputs(case["coeffs"], case["zs_coeffs"], cls,
+                                  case["bank"], pool)
+        row = _k6_row(k6, inp, cuda_ms)
+        want = tpd.quotient_class_ops(case["stark"], case["coeffs"],
+                                      case["zs_coeffs"], cls, case["bank"],
+                                      **case["static"])
+        if not torch.equal(cg.evaluate(k6, inp), want):
+            raise AssertionError(f"K6 {k6.table} disagrees with "
+                                 f"quotient_class_ops")
+        if sweep:
+            row["sweep"] = {}
+            for (b, live), other in sweep.items():
+                key = f"{b} ops, {live} live"
+                if not torch.equal(cg.evaluate(other, inp), want):
+                    raise AssertionError(f"K6 {k6.table} at {key} disagrees")
+                row["sweep"][key] = _k6_row(other, inp, cuda_ms)
+                print(json.dumps({"k6": k6.table, "sweep": key,
+                                  **row["sweep"][key]}), flush=True)
+        name = f"{k6.table} ({case['coeffs'].shape[0]}, {_log2(degree)})"
+        out[name] = row
+        print(json.dumps({"k6": name, **{k: v for k, v in row.items()
+                                         if k != "sweep"}}), flush=True)
+        del case, inp, want
+        torch.cuda.empty_cache()
+    return {"build_seconds": seconds, "tables": out}
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ that captures them), then four warm proves in turns (without, with, with,
 without), each untraced and timed on the host clock around
 torch.cuda.synchronize(), then one traced prove of each kind under
 torch.profiler with CUDA activities only. From each trace it sums the
-device time of every kernel by name and counts the kernels. That sum,
+device time of every kernel by name and counts the kernels (and K6's, the
+generated constraint slices and their constant tables, under "k6"). That sum,
 `device_kernel_seconds`, is the steady number: the host clock of the
 card's machine moves by tens of percent between runs. The busy share is the
 sum over each untraced warm prove's seconds, as a [low, high] range. Per
@@ -132,10 +133,15 @@ def main() -> int:
                 for e in prof.key_averages()]
         rows = [r for r in rows if r[2] > 0]
         rows.sort(key=lambda r: -r[2])
+        # K6: the generated slices and their constant tables
+        k6 = [r for r in rows
+              if r[0].startswith("slice") or "qk::prepare_kernel" in r[0]]
         traced["programs" if programs else "eager"] = {
             "prove_seconds_traced": traced_run["seconds"],
             "device_kernel_seconds": sum(r[2] for r in rows) / 1e6,
             "device_kernels": sum(r[1] for r in rows),
+            "k6": {"device_ms": sum(r[2] for r in k6) / 1e3,
+                   "launches": sum(r[1] for r in k6)},
             "top_kernels": [{"kernel": k[:120], "count": c,
                              "device_ms": t / 1e3}
                             for k, c, t in rows[:TOP_KERNELS]]}
@@ -156,6 +162,7 @@ def main() -> int:
             "warm_prove_seconds_median": statistics.median(seconds),
             "device_kernel_seconds": device_seconds,
             "device_kernels": traced[mode]["device_kernels"],
+            "k6": traced[mode]["k6"],
             "prove_seconds_traced": traced[mode]["prove_seconds_traced"],
             "busy_share_warm": [device_seconds / max(seconds),
                                 device_seconds / min(seconds)],

@@ -22,8 +22,10 @@ without printing a result:
    K=512's PoseidonStark (134, 2^20) and StorageAccessStark (48, 2^19)
    (QUOTIENT_SHAPES): the class (coset scaling, K1, selectors, K6) against
    the op-by-op quotient_class_ops and the slices against their plain
-   version, exactly, each timed, with K6's bound; the coset scaling and
-   selector kernels against their plain versions at (94, 2^20);
+   version, exactly, each timed, with K6's bound, and a class whose values
+   are EDGE_VALUES (p - 1, EPSILON, ...: the lazy helpers' PTX reaches
+   2^64 - 1) against both; no K6 slice may spill (ptxas -v); the coset
+   scaling and selector kernels against their plain versions at (94, 2^20);
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card four times on one trace generation, as a capture and a replay with
    each Merkle hasher: with blake3 caps (its programs captured), then
@@ -109,6 +111,7 @@ import hashlib
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -837,7 +840,7 @@ def plain_by_rows(k6, inp, rows: int = 1 << 16):
     for lo in range(0, m, rows):
         hi = min(m, lo + rows)
         zh = inp.zh_inv if inp.zh_inv.numel() == 1 else inp.zh_inv[lo:hi]
-        parts.append(ct.evaluate_plain(k6.tape, k6.cuts, ct.Inputs(
+        parts.append(ct.evaluate_plain(k6.plan, ct.Inputs(
             inp.lv[:, lo:hi], inp.nv[:, nxt[lo:hi]], inp.zl[:, lo:hi],
             inp.zn[:, nxt[lo:hi]], 0, inp.sel[:, lo:hi], inp.bank, inp.pool,
             zh)))
@@ -848,26 +851,83 @@ def k6_bound(k6, inp) -> dict:
     """K6's least time for one class: its input columns read once (the
     trace and Z values, the selectors) and the accumulators written, or the
     field operations that the quotient needs (constraint_tape.required_ops:
-    each node once, no product by a pooled 0 or 1, the Horner steps) at
+    each distinct operation of the lowered tape once, no product by a
+    pooled 0 or 1, a product and a sum per constraint and alpha) at
     bound()'s rates. Beside it the operations the slices run
-    (constraint_tape.slice_ops: a node in every slice whose cone holds it,
-    the products by 0 and 1) and the share of those that the quotient does
-    not need."""
+    (constraint_tape.plan_ops: the nodes each slice computes, recomputed
+    cones included) and the share of those that the quotient does not
+    need."""
     from olavm_tpu_torch.stark import constraint_tape as ct
 
     m = inp.rows
     cols = inp.lv.shape[0] + inp.zl.shape[0] + inp.sel.shape[0]
-    ops = ct.required_ops(k6.tape)
-    run = dict.fromkeys(ct.COMPUTE, 0)
-    for a, b in k6.cuts:
-        for kind, v in ct.slice_ops(k6.tape, a, b).items():
-            run[kind] += v
+    ops = ct.required_ops(k6.graph)
+    run = ct.plan_ops(k6.plan)
     small = ops["add"] + ops["sub"] + ops["neg"] + ops["ieq"]
     least = bound(8 * m * (cols + k6.tape.num_alphas),
                   m * (ops["mul"] * OPS_MUL + small * OPS_ADD),
                   m * ops["mul"] * MUL_PRODUCT)
     return {**least, "field_ops_per_row": ops, "kernel_field_ops_per_row": run,
             "kernel_ops_not_needed": 1 - sum(ops.values()) / sum(run.values())}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\w*?slice(\d+)\w*'")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_slices(log: str) -> list:
+    """[{"registers", "spill_stores", "spill_loads"}] per K6 slice kernel,
+    from what ptxas -v printed when its source was built ([] if it was
+    not built in this process)."""
+    out, k = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            k = int(m.group(1))
+            out[k] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if k is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[k]["spill_stores"] = int(m.group(1))
+            out[k]["spill_loads"] = int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[k]["registers"] = int(m.group(1))
+            k = None
+    return [out[k] for k in sorted(out)]
+
+
+def check_edge_class(k6, case, cls, pool, seed: int) -> int:
+    """K6 on a class whose trace and Z values are EDGE_VALUES (the
+    coefficients their inverse coset NTT), against quotient_class_ops and
+    the plain version: the largest difference. Sums of p - 1 and EPSILON
+    reach 2^64 - 1 in the lazy helpers' PTX."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.ntt import ntt as dntt
+    from olavm_tpu_torch.stark import constraint_codegen as cg
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    rng = np.random.default_rng(seed)
+    shift = int(cls[0]) % (1 << 64)
+    values = [gf.from_u64(edge_values(rng, tuple(x.shape)), cls.device)
+              for x in (case["coeffs"], case["zs_coeffs"])]
+    coeffs, zs = (dntt.coset_ifft(v, shift) for v in values)
+    inp = tpd.quotient_inputs(coeffs, zs, cls, case["bank"], pool)
+    if not (torch.equal(inp.lv, values[0]) and torch.equal(inp.zl, values[1])):
+        raise AssertionError("the edge class's coset values are not the edge "
+                             "values")
+    got = cg.evaluate(k6, inp)
+    want = tpd.quotient_class_ops(case["stark"], coeffs, zs, cls, case["bank"],
+                                  **case["static"])
+    err = max(max_abs_err(got, want), max_abs_err(got, plain_by_rows(k6, inp)))
+    del inp, coeffs, zs, values
+    return err
 
 
 def check_quotient_kernels(device, rng) -> dict:
@@ -883,6 +943,7 @@ def check_quotient_kernels(device, rng) -> dict:
     The kernel line's K6 entry is CpuStark's class at (94, 2^20)."""
     import torch
 
+    from olavm_tpu_torch import kernels
     from olavm_tpu_torch.field import gf
     from olavm_tpu_torch.stark import constraint_codegen as cg
     from olavm_tpu_torch.stark import prover_device as tpd
@@ -917,24 +978,36 @@ def check_quotient_kernels(device, rng) -> dict:
         err = max(max_abs_err(got["class"], got["ops"]),
                   max_abs_err(got["k6"], got["ops"]),
                   max_abs_err(got["k6"], got["plain"]))
+        edge_err = check_edge_class(k6, case, cls, pool, table)
         least = k6_bound(k6, inp)
+        ptxas = ptxas_slices(kernels.BUILD_LOG.get(k6.name, ""))
+        spilled = [k for k, sl in enumerate(ptxas)
+                   if sl["spill_stores"] or sl["spill_loads"]]
         tables[name] = {
-            "slices": len(k6.cuts), "max_abs_err": err, "k6_ms": k6_ms,
+            "slices": len(k6.plan.slices), "launches": len(k6.plan.slices) + 1,
+            "scratch_columns": k6.plan.scratch, "ptxas": ptxas,
+            "warps_per_sm": [b * 4 for b in k6.occupancy()],
+            "max_abs_err": err,
+            "edge_max_abs_err": edge_err, "k6_ms": k6_ms,
             "class_ms": class_ms, "ops_ms": ops_ms, "plain_ms": plain_ms,
             "bound_ms": least["bound_ms"], "bound_by": least["bound_by"],
             "share": least["bound_ms"] / k6_ms,
             "field_ops_per_row": least["field_ops_per_row"],
             "kernel_field_ops_per_row": least["kernel_field_ops_per_row"],
             "kernel_ops_not_needed": least["kernel_ops_not_needed"]}
-        log(f"  K6 {name}: {len(k6.cuts)} slices, max_abs_err={err} (class "
-            f"against quotient_class_ops, slices against their plain "
-            f"version), slices {k6_ms:.4f} ms, class {class_ms:.4f} ms, "
+        log(f"  K6 {name}: {len(k6.plan.slices)} slices, {k6.plan.scratch} "
+            f"scratch columns, max_abs_err={err} (class against "
+            f"quotient_class_ops, slices against their plain version), edge "
+            f"class {edge_err}, slices {k6_ms:.4f} ms, class {class_ms:.4f} ms, "
             f"op by op {ops_ms:.4f} ms, plain {plain_ms}, bound "
             f"{least['bound_ms']:.4f} ms by {least['bound_by']}, "
             f"{least['kernel_ops_not_needed']:.3f} of the slices' operations "
             f"not needed")
-        if err != 0:
+        if err != 0 or edge_err != 0:
             raise AssertionError(f"K6 {name} disagrees")
+        if spilled:
+            raise AssertionError(f"K6 {name}: ptxas spills in slices "
+                                 f"{spilled}: {ptxas}")
         if table == 0 and degree == FULL_CPU_ROWS:
             results["constraints"] = {
                 "max_abs_err": err, "ms": k6_ms, "plain_ms": plain_ms,
@@ -1360,6 +1433,21 @@ QUOTIENT_SHAPES = tuple((t, n) for t, (n, _) in enumerate(K5_TABLES)) + (
     (5, 1 << 20), (7, 1 << 19))
 
 
+# canonical values at the edges of K6's lazy arithmetic: (p - 1) + EPSILON
+# is 2^64 - 1, 0 - (p - 1) borrows, (p - 1)^2 is the largest product
+_P, _EPSILON = 0xFFFFFFFF00000001, 0xFFFFFFFF
+EDGE_VALUES = (0, 1, 2, _P - 1, _P - 2, 1 << 32, _EPSILON, (1 << 32) + 1,
+               1 << 63, _P - _EPSILON)
+
+
+def edge_values(rng, shape):
+    """A uint64 array of `shape` drawn from EDGE_VALUES."""
+    import numpy as np
+
+    return np.array(EDGE_VALUES, dtype=np.uint64)[
+        rng.integers(0, len(EDGE_VALUES), shape)]
+
+
 def quotient_case(table: int, degree: int, rng, device) -> dict:
     """One table's quotient inputs at `degree` rows, random from `rng`: the
     trace and Z coefficients (made on the card), compress challenges, and
@@ -1615,6 +1703,7 @@ def run() -> int:
     report["k6_build_seconds_each"] = tpd.prebuild_quotient_kernels(
         ola, StarkConfig.standard_fast_config())
     report["k6_build_seconds"] = time.perf_counter() - t0
+    k6_built = {n for n in kernels.BUILD_LOG if n.startswith("k6_")}
     log(f"[1] built K6 for the 12 tables "
         f"({len(report['k6_build_seconds_each'])} sources) in "
         f"{report['k6_build_seconds']:.1f} s")
@@ -1778,6 +1867,10 @@ def run() -> int:
         # rank captures its own programs)
         report["sharded"] = sharded_path(workdir, started)
 
+    # every prove, under its own challenges, ran the 12 sources of phase 1
+    k6_later = {n for n in kernels.BUILD_LOG if n.startswith("k6_")} - k6_built
+    if k6_later:
+        raise AssertionError(f"K6 sources built after phase 1: {k6_later}")
     jax_after = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")}
     if jax_after - jax_before:
         raise AssertionError(f"the port imported {sorted(jax_after - jax_before)}")

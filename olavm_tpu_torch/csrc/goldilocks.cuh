@@ -19,6 +19,12 @@
 
 #include <cstdint>
 
+#ifndef GL_LAZY_SEEN
+// a host build may define it to watch every lazy result of the host twins
+// (the tests: that edge inputs drive them to 2^64 - 1)
+#define GL_LAZY_SEEN(x) (x)
+#endif
+
 namespace gl {
 
 constexpr uint64_t P = 0xFFFFFFFF00000001ull;
@@ -43,10 +49,16 @@ __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
   return s >= P ? s - P : s;
 }
 
+// a - b mod p for any 64-bit a and canonical b: canonical where a is, else
+// lazy (a residue below 2^64)
 __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   uint64_t d = a - b;
   // on borrow d = a - b + 2^64 > EPSILON, so d - EPSILON = a - b + p >= 0
+#ifdef __CUDA_ARCH__
   return (a < b) ? d - EPSILON : d;
+#else
+  return GL_LAZY_SEEN((a < b) ? d - EPSILON : d);
+#endif
 }
 
 // any 64-bit word to its canonical residue
@@ -77,7 +89,7 @@ __device__ __forceinline__ uint64_t add_lazy(uint64_t x, uint64_t c) {
   return (static_cast<uint64_t>(x1) << 32) | x0;
 #else
   const uint64_t s = x + c;
-  return s < x ? s + EPSILON : s;
+  return GL_LAZY_SEEN(s < x ? s + EPSILON : s);
 #endif
 }
 
@@ -124,10 +136,52 @@ __device__ __forceinline__ uint64_t add_eps(uint64_t x, uint32_t k) {
 #endif
 }
 
+// a + b mod p, lazy, for any 64-bit a and b: the carry out of 64 bits is
+// 2^64 = EPSILON, added back by add_eps (which handles its own carry)
+__device__ __forceinline__ uint64_t add_ll(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t x0 = static_cast<uint32_t>(a), x1 = static_cast<uint32_t>(a >> 32);
+  uint32_t cy;
+  asm("add.cc.u32  %0, %0, %3;\n\t"
+      "addc.cc.u32 %1, %1, %4;\n\t"
+      "addc.u32    %2, 0, 0;"
+      : "+r"(x0), "+r"(x1), "=r"(cy)
+      : "r"(static_cast<uint32_t>(b)), "r"(static_cast<uint32_t>(b >> 32)));
+  return add_eps((static_cast<uint64_t>(x1) << 32) | x0, cy);
+#else
+  const uint64_t s = a + b;
+  return GL_LAZY_SEEN(s < a ? add_eps(s, 1) : s);
+#endif
+}
+
+// a - b mod p, lazy, for any 64-bit a and b: the borrow out of 64 bits is
+// -2^64 = -EPSILON, taken off by sub_small (which handles its own borrow)
+__device__ __forceinline__ uint64_t sub_ll(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t x0 = static_cast<uint32_t>(a), x1 = static_cast<uint32_t>(a >> 32);
+  uint32_t bw;
+  // bw = 0 - borrow: 0, or 0xFFFFFFFF = EPSILON
+  asm("sub.cc.u32  %0, %0, %3;\n\t"
+      "subc.cc.u32 %1, %1, %4;\n\t"
+      "subc.u32    %2, 0, 0;"
+      : "+r"(x0), "+r"(x1), "=r"(bw)
+      : "r"(static_cast<uint32_t>(b)), "r"(static_cast<uint32_t>(b >> 32)));
+  return sub_small((static_cast<uint64_t>(x1) << 32) | x0, bw);
+#else
+  const uint64_t d = a - b;
+  return GL_LAZY_SEEN(a < b ? sub_small(d, static_cast<uint32_t>(EPSILON)) : d);
+#endif
+}
+
 // lo + hi * 2^64, any 128-bit value, lazy: 2^64 = EPSILON, 2^96 = -1
 __device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
-  return add_eps(sub_small(lo, static_cast<uint32_t>(hi >> 32)),
-                 static_cast<uint32_t>(hi));
+  const uint64_t r = add_eps(sub_small(lo, static_cast<uint32_t>(hi >> 32)),
+                             static_cast<uint32_t>(hi));
+#ifdef __CUDA_ARCH__
+  return r;
+#else
+  return GL_LAZY_SEEN(r);
+#endif
 }
 
 __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
