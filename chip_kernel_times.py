@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the NTT (K1), Poseidon, absorb and evaluation (K5) kernels of this
-checkout at the main path's shapes, and count the SASS instructions of their
+"""Time the NTT (K1), Poseidon, absorb, evaluation (K5), inversion (K7) and
+scan (K8) kernels of this checkout at the main path's shapes, and count the SASS instructions of their
 kernels.
 
     python3 chip_kernel_times.py                    # all; one CUDA card, nvcc
@@ -8,6 +8,8 @@ kernels.
     python3 chip_kernel_times.py --kernel absorb    # the streamed commit's
     python3 chip_kernel_times.py --kernel eval      # K5
     python3 chip_kernel_times.py --kernel quotient  # the quotient's classes
+    python3 chip_kernel_times.py --kernel inv       # K7, inversion
+    python3 chip_kernel_times.py --kernel scan      # K8, the scan
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
 after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
@@ -35,6 +37,13 @@ registers and spills per slice, warps an SM, scratch columns, operations
 run against constraint_tape.required_ops, ms against its bound), each
 checked against quotient_class_ops, with the SWEEP of its slice budget and
 live values beside the kept constants.
+For `inv` and `scan`, "rows" holds K7 (base field and extension) and K8
+(inclusive and exclusive) at the main path's sizes: CUDA-event ms of
+back-to-back calls, device ms (torch.profiler; K8's with its scratch's
+fill), the bound (chip_smoke.bound) and its share, and the device ms of the
+K3 chain each replaced on the same inputs (inversion by square and multiply
+on gf.mul, 125 launches, 131 with the norm; the Hillis-Steele scan, a fill,
+a cat and a K3 launch a step).
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -74,11 +83,20 @@ SHAPES = {
     # the large tables' columns); the tables' classes: chip_smoke.QUOTIENT_SHAPES
     "quotient": (1, 2, 4, 256, 1024, 1 << 17, 1 << 18, 1 << 19, 1 << 20,
                  1 << 21),
+    # K7: the permutation Zs' traces (BitwiseStark 2^18, RangeCheckStark
+    # 2^19, ProgramStark 2^21 at N=94000) in the base field, the FRI
+    # composition's LDEs (2^20 to 2^24) in the extension
+    "inv": ((1 << 18, 1 << 19, 1 << 21, 1 << 24),
+            (1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24)),
+    # K8: the CTL and permutation Zs' lengths at N=94000 and above
+    "scan": (1 << 10, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22,
+             1 << 24),
 }
 # the csrc sources that hold each choice's kernels
 LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
         "absorb": ("blake3", "poseidon"), "eval": ("eval",),
-        "quotient": ("gf_mul", "ntt", "quotient")}
+        "quotient": ("gf_mul", "ntt", "quotient"),
+        "inv": ("gf_inv", "gf_mul"), "scan": ("scan", "gf_mul")}
 # libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
 # the FRI trees' arity-16 extension leaves, one permutation per leaf) and
 # tree levels of n digests
@@ -229,6 +247,8 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return time_eval(gen, cuda_ms)
     if kernel == "quotient":
         return time_quotient(gen, cuda_ms)
+    if kernel in ("inv", "scan"):
+        return time_inv_scan(kernel, gen, cuda_ms)
     if kernel == "ntt":
         from olavm_tpu_torch.ntt import ntt as dntt
 
@@ -263,6 +283,68 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return {"ms": ms}
     return {"ms": ms, "ns_per_permutation": {
         k: v * 1e6 / perms[k] for k, v in ms.items()}}
+
+
+def time_inv_scan(kernel: str, gen, cuda_ms) -> dict:
+    """{"rows": {name: {"ms", "device_ms", "bound_ms", "bound_by", "share",
+    "k3_chain_device_ms"}}} for K7 or K8 at SHAPES[kernel]."""
+    import torch
+
+    import chip_smoke
+    from olavm_tpu_torch.field import gf, gfe
+
+    def k3_inv(x):
+        return gf.exp_const(x, gf.P - 2)
+
+    def k3_ext_inv(a):
+        norm = gf.sub(gf.mul(a.re, a.re), gf.mul_u32(gf.mul(a.im, a.im), 7))
+        ninv = k3_inv(norm)
+        return gf.mul(a.re, ninv), gf.mul(gf.neg(a.im), ninv)
+
+    def k3_scan(x, exclusive):
+        y, d = x, 1
+        while d < x.shape[-1]:
+            y = gf.mul(y, torch.cat([torch.ones_like(y[:d]), y[:-d]]))
+            d <<= 1
+        return torch.cat([torch.ones_like(y[:1]), y[:-1]]) if exclusive else y
+
+    def rand(n):
+        return torch.randint(0, 1 << 62, (n,), generator=gen, device="cuda")
+
+    cases = []  # (name, call, the K3 chain, bytes, products, sums)
+    if kernel == "inv":
+        base, ext = SHAPES["inv"]
+        for n in base:
+            x = rand(n)
+            cases.append((f"base {_log2(n)}", lambda x=x: gf.inv(x),
+                          lambda x=x: k3_inv(x), 16 * n,
+                          chip_smoke.INV_PRODUCTS * n, 0))
+        for n in ext:
+            a = gfe.GFE(rand(n), rand(n))
+            cases.append((f"ext {_log2(n)}", lambda a=a: gfe.inv(a),
+                          lambda a=a: k3_ext_inv(a), 32 * n,
+                          chip_smoke.EXT_INV_PRODUCTS * n, 2 * n))
+    else:
+        for n in SHAPES["scan"]:
+            x = rand(n)
+            for ex in (False, True):
+                cases.append((f"{'exclusive' if ex else 'inclusive'} "
+                              f"{_log2(n)}",
+                              lambda x=x, ex=ex: gf.prefix_prod(x, exclusive=ex),
+                              lambda x=x, ex=ex: k3_scan(x, ex), 16 * n,
+                              chip_smoke.SCAN_PRODUCTS * n, 0))
+    rows = {}
+    for name, call, chain, nbytes, products, sums in cases:
+        least = chip_smoke.bound(
+            nbytes, products * chip_smoke.OPS_MUL + sums * chip_smoke.OPS_ADD,
+            products * chip_smoke.MUL_PRODUCT)
+        dev_ms = chip_smoke.device_ms(call, 20)
+        rows[name] = {"ms": cuda_ms(call, 20), "device_ms": dev_ms,
+                      "bound_ms": least["bound_ms"],
+                      "bound_by": least["bound_by"],
+                      "share": least["bound_ms"] / dev_ms,
+                      "k3_chain_device_ms": chip_smoke.device_ms(chain, 3)}
+    return {"rows": rows}
 
 
 def time_absorb(gen, cuda_ms) -> dict:

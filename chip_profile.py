@@ -11,7 +11,9 @@ the cold prove, before any program exists), then with them (the prove
 that captures them), then four warm proves in turns (without, with, with,
 without), each untraced and timed on the host clock around
 torch.cuda.synchronize(), then one traced prove of each kind under
-torch.profiler with CUDA activities only. From each trace it sums the
+torch.profiler with CUDA activities only, and a traced prove with the
+programs under CPU and CUDA activities that splits the card's kernels by
+program tag (`program_split`). From each trace it sums the
 device time of every kernel by name and counts the kernels (and K6's, the
 generated constraint slices and their constant tables, under "k6"). That sum,
 `device_kernel_seconds`, is the steady number: the host clock of the
@@ -25,6 +27,14 @@ outside the graphs cannot use, so the reserved peak is given beside the
 allocated one), with the programs' buffers and pool. Prints one JSON object
 as the last line and writes the same, with the kernel tables, to
 chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon).
+
+The split: each program call runs inside a profiler range named after its
+tag (`ctlz`, `permz`, `qclass`, `extpows`, `fricomp`, `frifold`,
+`fri_refft`); every kernel that ran is charged, through the correlation id
+of the runtime call that launched it (a kernel launch, or the graph launch
+of a replay), to the range around that call, or to "host" (issued by the
+host outside any program). Per tag it gives, by kernel class (K3, add,
+sub, cat, fill, K7, K8, the rest), the launches and device milliseconds.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -40,6 +51,72 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOP_KERNELS = 25
+# the classes of program_split, by kernel name: the first that matches
+KERNEL_CLASSES = (
+    ("gf_mul", re.compile(r"binop_kernel<.*Op\)0>")),
+    ("gf_add", re.compile(r"binop_kernel<.*Op\)1>")),
+    ("gf_sub", re.compile(r"binop_kernel<.*Op\)2>")),
+    ("cat", re.compile(r"CatArrayBatchedCopy")),
+    ("fill", re.compile(r"FillFunctor")),
+    ("gf_inv", re.compile(r"inv_kernel")),
+    ("prefix_prod", re.compile(r"scan_kernel")),
+)
+PROGRAM_RANGE = "program:"
+
+
+def kernel_class(name: str) -> str:
+    for cls, pattern in KERNEL_CLASSES:
+        if pattern.search(name):
+            return cls
+    return "other"
+
+
+def program_split(trace: dict) -> dict:
+    """{tag: {class: {"launches", "device_ms"}}} of a chrome trace taken
+    with CPU and CUDA activities while every program call ran inside a
+    record_function range "program:<tag>" (see the module's docstring)."""
+    import bisect
+
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["tid"],
+                     e["name"][len(PROGRAM_RANGE):])
+                    for e in events if e.get("ph") == "X"
+                    and e.get("name", "").startswith(PROGRAM_RANGE))
+    starts = [r[0] for r in ranges]
+    launched_in = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("cuda_runtime",
+                                                       "cuda_driver"):
+            continue
+        corr = e.get("args", {}).get("correlation")
+        if corr is None:
+            continue
+        tag = "host"
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        # the innermost range that holds the call, on its thread
+        while i >= 0:
+            lo, hi, tid, name = ranges[i]
+            if tid == e["tid"] and lo <= e["ts"] <= hi:
+                tag = name
+                break
+            if e["ts"] - lo > 60e6:  # no range is a minute long
+                break
+            i -= 1
+        launched_in[corr] = tag
+    out = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        tag = launched_in.get(e.get("args", {}).get("correlation"),
+                              "unattributed")
+        row = out.setdefault(tag, {}).setdefault(
+            kernel_class(e["name"]), {"launches": 0, "device_ms": 0.0})
+        row["launches"] += 1
+        row["device_ms"] += e["dur"] / 1e3
+    for tag, rows in out.items():
+        rows["all"] = {"launches": sum(r["launches"] for r in rows.values()),
+                       "device_ms": sum(r["device_ms"] for r in rows.values())}
+    return out
 
 
 def main() -> int:
@@ -146,7 +223,30 @@ def main() -> int:
                              "device_ms": t / 1e3}
                             for k, c, t in rows[:TOP_KERNELS]]}
 
-    digests = {r["proof_sha256"] for r in runs}
+    # the split by program tag: one more programs prove, traced with CPU
+    # and CUDA activities, every program call inside a range of its tag
+    call = jitcache.Program.__call__
+
+    def annotated(self, *inputs):
+        tag = self.key[0] if isinstance(self.key, tuple) else self.key
+        with torch.profiler.record_function(f"{PROGRAM_RANGE}{tag}"):
+            return call(self, *inputs)
+
+    jitcache.Program.__call__ = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            split_run = prove(True)
+    finally:
+        jitcache.Program.__call__ = call
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            split = program_split(json.load(f))
+    del prof
+
+    digests = {r["proof_sha256"] for r in (*runs, split_run)}
     if len(digests) != 1:
         raise AssertionError(f"the proves differ: {sorted(digests)}")
     result = {"card": smi, "torch": torch.__version__, "N": chip_smoke.FULL_N,
@@ -175,12 +275,17 @@ def main() -> int:
             "peak_memory_bytes": [r["peak_memory_bytes"] for r in warm],
             "peak_reserved_bytes": [r["peak_reserved_bytes"] for r in warm],
         }
+    result["program_split"] = split
     result["cold_eager_peak_memory_bytes"] = runs[0]["peak_memory_bytes"]
     result["cold_eager_peak_reserved_bytes"] = runs[0]["peak_reserved_bytes"]
     result["program_memory_bytes"] = runs[-1]["program_memory_bytes"]
     result["host_issued_share"] = (
         max(result["programs"]["host_issued_launches"])
         / min(result["eager"]["host_issued_launches"]))
+    for tag, rows in sorted(split.items(), key=lambda kv: -kv[1]["all"]["device_ms"]):
+        print(f"split {tag:12s} " + "  ".join(
+            f"{c} {r['launches']} / {r['device_ms']:.2f} ms"
+            for c, r in sorted(rows.items())), file=sys.stderr)
     for mode in ("eager", "programs"):
         for row in traced[mode]["top_kernels"]:
             print(f"{mode:8s} {row['device_ms']:10.2f} ms {row['count']:8d}  "

@@ -26,6 +26,11 @@ without printing a result:
    are EDGE_VALUES (p - 1, EPSILON, ...: the lazy helpers' PTX reaches
    2^64 - 1) against both; no K6 slice may spill (ptxas -v); the coset
    scaling and selector kernels against their plain versions at (94, 2^20);
+   K7, inversion, in the base field at 2^21 (the permutation Z's) and in
+   the extension at 2^24 (the FRI composition's largest LDE), and K8, the
+   grand-product scan, inclusive and exclusive at 2^21, on two rows and at
+   lengths 1, 3 and a tile + 1, each with edge values and zeros (all zeros,
+   a zero in every chunk of a thread);
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card four times on one trace generation, as a capture and a replay with
    each Merkle hasher: with blake3 caps (its programs captured), then
@@ -87,9 +92,11 @@ the rank's own process), counting the launches the host issued and those
 that graph replays ran (each capture records its graph's launches, and
 each replay adds them); the run must have launched its
 hasher's kernels (K1, K2, K3, add, sub, K5, K6 with the coset scaling and
-selector kernels, and the hasher's leaf, absorb and level kernels), none of
-the other hasher's, no K3, add or sub inside a quotient program, and its
-leaf and absorb kernels as often as its commits' shapes need. Each records prove and verify seconds
+selector kernels, K7 in both fields, K8, and the hasher's leaf, absorb and
+level kernels), none of the other hasher's, no K3, add or sub inside a
+quotient program, no plain inversion or scan on a CUDA tensor (the chains
+K7 and K8 replaced refuse one during the prove), and its leaf and absorb
+kernels as often as its commits' shapes need. Each records prove and verify seconds
 (a group verifies on rank 0), peak device memory and the host's peak
 resident memory.
 
@@ -98,7 +105,7 @@ this process or in any rank. The
 last lines are every prove's seconds, peak memory, launch counts and
 sha256, the programs (per tag at N=94000, per prove the launches the host
 issued and those replayed, the reserved peak and the programs' bytes
-beside the card's memory), the nanoseconds per permutation of K2 and of the Poseidon leaf and
+beside the card's memory, and K3's launches by program tag), the nanoseconds per permutation of K2 and of the Poseidon leaf and
 level kernels at their largest shapes, the `kernels` JSON line (launches
 summed over the proves), the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}. A longer report goes to
@@ -107,6 +114,7 @@ chip_smoke_out/report.json.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -366,20 +374,26 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int) -> float:
     """Device milliseconds per call of the kernels `fn` launches, from
     torch.profiler: at shapes where a call takes less than the host needs
-    to issue it, CUDA events around back-to-back calls time the host."""
+    to issue it, CUDA events around back-to-back calls time the host. A
+    trace that shows no device time (seen once on the card, between traces
+    that did) is taken again; after three such, CUDA events time `fn`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "device_time_total", None)
+                       or getattr(e, "cuda_time_total", 0.0)
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    log("  device_ms: the profiler saw no device time; CUDA events instead")
+    return cuda_ms(fn, reps)
 
 
 def bound(nbytes: float, int_ops: float, mul: float = 0, alu: float = 0) -> dict:
@@ -1047,6 +1061,134 @@ def check_quotient_kernels(device, rng) -> dict:
     return results
 
 
+# products a point that inversion by batch needs: the running product and
+# two on the walk back; the extension's norm (a^2, b^2, 7 b^2) and its two
+# parts times the norm's inverse more (and the conjugate's negation, a sum)
+INV_PRODUCTS = 3
+EXT_INV_PRODUCTS = INV_PRODUCTS + 3 + 2
+# products a point of the scan: n - 1 in all, whatever the order
+SCAN_PRODUCTS = 1
+# K8's tile, csrc/scan.cu's THREADS * ITEMS
+SCAN_TILE = 2048
+# K7's points a thread, csrc/gf_inv.cu's CHUNK and EXT_CHUNK
+INV_CHUNK, EXT_INV_CHUNK = 16, 8
+
+
+def check_inv_scan_kernels(device, rng) -> dict:
+    """K7 (gf_inv, gf_ext_inv) and K8 (prefix_prod) against their plain
+    versions, exactly, on edge values (EDGE_VALUES, (0, 0) and every pair of
+    them in the extension), all zeros and a zero in every chunk of a thread,
+    at the main path's shapes: the permutation Z's inversion at 2^21
+    (ProgramStark's trace), the FRI composition's extension inversion at
+    2^24 (its largest LDE), the scan at 2^21 inclusive and exclusive, on two
+    rows of 2^20 and at lengths 1, 3 and a tile + 1, each also at small
+    lengths; timed by device time (torch.profiler: the scan's time is its
+    scratch's fill and its launch)."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch.field import gf, gfe
+
+    results = {}
+
+    def record(name, err, ms, plain_ms, least, detail):
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **least, "library_ms": None, "checked": detail}
+        log(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({least['bound_ms'] / ms:.0%}; {detail})")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    edge = np.array(EDGE_VALUES, dtype=np.uint64)
+
+    def points(n, chunk):
+        """{case: uint64 array}: random with the edge values first, all
+        zeros, a zero first in every chunk of a thread."""
+        x = rng.integers(0, gf.P, n, dtype=np.uint64)
+        x[:min(n, len(edge))] = edge[:n]
+        every = x.copy()
+        every[:-(-n // chunk)] = 0
+        return {"random": x, "zeros": np.zeros(n, dtype=np.uint64),
+                "zero in every chunk": every}
+
+    # K7, base field: the shapes, then the permutation Z's 2^21
+    err = 0
+    for n in (1, 17, 1000, 1 << 21):
+        for case, x in points(n, INV_CHUNK).items():
+            t = gf.from_u64(x, device)
+            err = max(err, max_abs_err(gf.inv(t), gf.inv_plain(t)))
+            if case == "random":
+                timed = t
+    t = timed
+    ms = device_ms(lambda: gf.inv(t), 20)
+    plain_ms = cuda_ms(lambda: gf.inv_plain(t), 2)
+    record("gf_inv", err, ms, plain_ms,
+           bound(16 * n, INV_PRODUCTS * OPS_MUL * n,
+                 INV_PRODUCTS * MUL_PRODUCT * n),
+           "n = 1, 17, 1000, 2^21: edge values, all zeros, a zero in every "
+           "chunk; times at 2^21")
+    del t
+
+    # K7, extension: (0, 0) and every pair of edge values, then the FRI
+    # composition's 2^24
+    err = 0
+    for n in (1, 9, 1000, 1 << 24):
+        for case, x in points(n, EXT_INV_CHUNK).items():
+            y = rng.integers(0, gf.P, n, dtype=np.uint64)
+            if case == "random":
+                pairs = min(n, len(edge) ** 2)
+                x[:pairs] = np.repeat(edge, len(edge))[:pairs]
+                y[:pairs] = np.tile(edge, len(edge))[:pairs]
+            y[x == 0] = 0
+            a = gfe.GFE(gf.from_u64(x, device), gf.from_u64(y, device))
+            got, want = gfe.inv(a), gfe.inv_plain(a)
+            err = max(err, max_abs_err(got.re, want.re),
+                      max_abs_err(got.im, want.im))
+            del got, want
+            if case == "random":
+                timed = a
+    a = timed
+    del timed
+    ms = device_ms(lambda: gfe.inv(a), 20)
+    plain_ms = cuda_ms(lambda: gfe.inv_plain(a), 1)
+    record("gf_ext_inv", err, ms, plain_ms,
+           bound(32 * n, EXT_INV_PRODUCTS * OPS_MUL * n + 2 * OPS_ADD * n,
+                 EXT_INV_PRODUCTS * MUL_PRODUCT * n),
+           "n = 1, 9, 1000, 2^24: (0, 0), every pair of edge values, all "
+           "zeros, a zero in every chunk; times at 2^24")
+    del a
+    torch.cuda.empty_cache()
+
+    # K8: lengths around a tile, two rows, then 2^21 both forms
+    err = 0
+    shapes = [(1, 1), (1, 3), (1, SCAN_TILE + 1), (1, 40 * SCAN_TILE + 7),
+              (2, 1 << 20), (1, 1 << 21)]
+    for rows, n in shapes:
+        x = rng.integers(0, gf.P, (rows, n), dtype=np.uint64)
+        x.reshape(-1)[:min(x.size, len(edge))] = edge[:x.size]
+        if rows > 1:
+            x[1, n // 2] = 0  # the rest of that row's products are 0
+        t = gf.from_u64(x, device)
+        for exclusive in (False, True):
+            err = max(err, max_abs_err(
+                gf.prefix_prod(t, exclusive=exclusive),
+                gf.prefix_prod_plain(t, exclusive=exclusive)))
+    t = t[0]
+    ms = device_ms(lambda: gf.prefix_prod(t), 20)
+    excl_ms = device_ms(lambda: gf.prefix_prod(t, exclusive=True), 20)
+    plain_ms = cuda_ms(lambda: gf.prefix_prod_plain(t), 3)
+    record("prefix_prod", err, ms, plain_ms,
+           bound(16 * n, SCAN_PRODUCTS * OPS_MUL * n,
+                 SCAN_PRODUCTS * MUL_PRODUCT * n),
+           f"inclusive and exclusive at {shapes} (edge values, a zero); "
+           f"times at 2^21 inclusive, exclusive {excl_ms:.4f} ms")
+    results["prefix_prod"]["exclusive_ms"] = excl_ms
+    del t
+    torch.cuda.synchronize()
+    return results
+
+
 def time_plain_steps(device, rng) -> dict:
     """Card times of the main-path steps that stay plain torch in this
     version (each becomes a hand-written kernel later)."""
@@ -1064,9 +1206,6 @@ def time_plain_steps(device, rng) -> dict:
         return torch.randint(0, 1 << 62, shape, generator=gen, device=device)
 
     out = {}
-    z = rand((1 << 21,))
-    out["prefix_prod 2^21"] = cuda_ms(lambda: gf.prefix_prod(z), 3)
-    del z
     coeffs = gfe.GFE(rand((1 << 23,)), rand((1 << 23,)))
     beta = tuple(int(v) for v in rng.integers(0, gf.P, 2, dtype=np.uint64))
     out["fri_fold 2^23 arity 16"] = cuda_ms(lambda: fri_fold(coeffs, beta, 16), 3)
@@ -1238,6 +1377,38 @@ def prove_and_verify(prepared, device, merkle_hasher: str):
     return data, report
 
 
+@contextlib.contextmanager
+def plain_chains_refused():
+    """Within it, the plain versions that K7 and K8 replaced on the main
+    path (the exp_const chain of inversion, gf.inv_plain, gfe.inv_plain,
+    the Hillis-Steele gf.prefix_prod_plain) raise when given a CUDA tensor:
+    on the card every inversion and scan must take its kernel."""
+    import torch
+
+    from olavm_tpu_torch.field import gf, gfe
+
+    def refuse(name, fn):
+        def guarded(*args, **kwargs):
+            parts = [p for a in args
+                     for p in (a if isinstance(a, tuple) else (a,))]
+            if any(isinstance(p, torch.Tensor) and p.is_cuda for p in parts):
+                raise AssertionError(f"{name} ran on a CUDA tensor on the "
+                                     f"main path")
+            return fn(*args, **kwargs)
+        return guarded
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (gf, "exp_const"), (gf, "inv_plain"), (gfe, "inv_plain"),
+        (gf, "prefix_prod_plain"))]
+    for mod, name, fn in saved:
+        setattr(mod, name, refuse(f"{mod.__name__}.{name}", fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def program_memory() -> dict:
     """Device bytes held by the programs (olavm_tpu_torch/utils/jitcache.py)
     now: their input and output buffers and their shared graph pool."""
@@ -1248,15 +1419,22 @@ def program_memory() -> dict:
 
 def program_counts(before: dict, after: dict) -> dict:
     """Captures, graphs dropped, replays and the kernel launches the replays
-    ran between two jitcache.stats(), in all and per program tag."""
+    ran between two jitcache.stats(), in all and per program tag (there
+    also by kernel)."""
     fields = ("captures", "dropped", "replays", "replayed_launches")
     out = {**dict.fromkeys(fields, 0), "by_tag": {}}
     for key, st in after.items():
         old = before.get(key, dict.fromkeys(fields, 0))
-        tag = out["by_tag"].setdefault(st["tag"], dict.fromkeys(fields, 0))
+        tag = out["by_tag"].setdefault(st["tag"], {
+            **dict.fromkeys(fields, 0), "replayed_kernels": {}})
         for k in fields:
             tag[k] += st[k] - old[k]
             out[k] += st[k] - old[k]
+        by_kernel = tag["replayed_kernels"]
+        for k, v in st["replayed_kernels"].items():
+            v -= old.get("replayed_kernels", {}).get(k, 0)
+            if v:
+                by_kernel[k] = by_kernel.get(k, 0) + v
     return out
 
 
@@ -1400,7 +1578,8 @@ def cli_path(workdir: str) -> dict:
 # the other Merkle hasher's kernels must not
 SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub",
                   "eval_points", "constraints", "scale_powers",
-                  "quotient_selectors")
+                  "quotient_selectors", "gf_inv", "gf_ext_inv",
+                  "prefix_prod")
 # kernels that the quotient's programs must not launch: K6 and its fixed
 # kernels took their place
 NOT_IN_QUOTIENT = ("gf_mul", "gf_add", "gf_sub")
@@ -1663,6 +1842,12 @@ KERNELS = (
      "olavm_tpu/stark/prover_device.py:318", ("scale_powers",)),
     ("quotient_selectors", "cuda", "olavm_tpu_torch/csrc/quotient.cu",
      "olavm_tpu/stark/prover_device.py:175", ("quotient_selectors",)),
+    ("gf_inv", "cuda", "olavm_tpu_torch/csrc/gf_inv.cu",
+     "olavm_tpu/field/gf.py:252", ("gf_inv",)),
+    ("gf_ext_inv", "cuda", "olavm_tpu_torch/csrc/gf_inv.cu",
+     "olavm_tpu/field/gfe.py:115", ("gf_ext_inv",)),
+    ("prefix_prod", "cuda", "olavm_tpu_torch/csrc/scan.cu",
+     "olavm_tpu/field/gf.py:317", ("prefix_prod",)),
 )
 
 
@@ -1723,6 +1908,7 @@ def run() -> int:
     report["kernels"] = check_kernels(device, rng)
     report["kernels"].update(check_stream_kernels(device, rng))
     report["kernels"].update(check_quotient_kernels(device, rng))
+    report["kernels"].update(check_inv_scan_kernels(device, rng))
     report["plain_steps_ms"] = time_plain_steps(device, rng)
     torch.cuda.empty_cache()
 
@@ -1736,7 +1922,8 @@ def run() -> int:
         captured by an earlier prove, whose challenges were other."""
         kernels.reset_launches()
         before = jitcache.stats()
-        _, rep = prove_and_verify(prepared, device, hasher)
+        with plain_chains_refused():
+            _, rep = prove_and_verify(prepared, device, hasher)
         rep["label"] = label
         launches = rep["launches"] = dict(kernels.LAUNCHES)
         rep["host_launches"] = dict(kernels.HOST_LAUNCHES)
@@ -1919,6 +2106,13 @@ def run() -> int:
             "replays": r["programs"]["replays"],
             "peak_reserved_bytes": r.get("peak_reserved_bytes"),
             "program_memory_bytes": r.get("program_memory_bytes")}
+            for r in runs},
+        # K3's launches per prove: by the program tag whose replays ran
+        # them, and those the host issued
+        "k3_launches_by_tag": {r["label"]: {
+            "host": r["host_launches"]["gf_mul"],
+            **{tag: t["replayed_kernels"].get("gf_mul", 0)
+               for tag, t in r["programs"]["by_tag"].items()}}
             for r in runs}}}))
     print(json.dumps({"ns_per_permutation": {
         name: report["kernels"][name]["ms"] * 1e6 / perms

@@ -248,6 +248,39 @@ __device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
   return reduce128_lazy(w.lo, w.hi);
 }
 
+// b^e, canonical, by square and multiply
+__device__ __forceinline__ uint64_t pow_u64(uint64_t b, uint64_t e) {
+  uint64_t r = 1;
+  while (e) {
+    if (e & 1) r = mul(r, b);
+    b = mul(b, b);
+    e >>= 1;
+  }
+  return r;
+}
+
+// x^(2^k), canonical: k squarings
+__device__ __forceinline__ uint64_t sqr_n(uint64_t x, int k) {
+  for (int i = 0; i < k; ++i) x = mul(x, x);
+  return x;
+}
+
+// x^(p - 2): 1/x, and 0 for x = 0. With t_k = x^(2^k - 1) and t_a^(2^b)
+// t_b = t_(a+b), p - 2 = (2^31 - 1) 2^33 + 2^32 - 1 is an addition chain
+// of 63 squarings and 9 products (square and multiply takes 63 and 62)
+__device__ __forceinline__ uint64_t inv(uint64_t x) {
+  const uint64_t t2 = mul(sqr_n(x, 1), x);
+  const uint64_t t3 = mul(sqr_n(t2, 1), x);
+  const uint64_t t6 = mul(sqr_n(t3, 3), t3);
+  const uint64_t t12 = mul(sqr_n(t6, 6), t6);
+  const uint64_t t24 = mul(sqr_n(t12, 12), t12);
+  const uint64_t t30 = mul(sqr_n(t24, 6), t6);
+  const uint64_t t31 = mul(sqr_n(t30, 1), x);
+  const uint64_t t31_2 = sqr_n(t31, 1);
+  const uint64_t t32 = mul(t31_2, x);
+  return mul(sqr_n(t31_2, 32), t32);
+}
+
 // x^7, lazy
 __device__ __forceinline__ uint64_t pow7_lazy(uint64_t x) {
   const uint64_t x2 = mul_lazy(x, x);

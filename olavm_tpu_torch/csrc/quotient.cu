@@ -18,7 +18,8 @@
 // (Montgomery) inversion: a thread takes SEL_CHUNK points, i = t + k*T for
 // T threads, so its stores are coalesced across threads; it forms the
 // product q_k = (x_k - 1)(x_k - g^{-1}) of each point's two denominators,
-// their prefix products, one inverse x^(p-2) of the whole, and walks back
+// their prefix products, one inverse x^(p-2) of the whole (gl::inv, as
+// K7 in csrc/gf_inv.cu), and walks back
 // to each 1/q_k, which times the other denominator gives each inverse.
 // About 9 products a point and an exponentiation a thread. No
 // denominator is 0: the class's coset shift*H is disjoint from H. Bound:
@@ -34,20 +35,6 @@ constexpr int THREADS = 256;
 constexpr int SEL_CHUNK = 16;
 constexpr int SEL_THREADS = 128;
 
-__device__ __forceinline__ uint64_t pow_u64(uint64_t b, uint64_t e) {
-  uint64_t r = 1;
-  while (e) {
-    if (e & 1) r = gl::mul(r, b);
-    b = gl::mul(b, b);
-    e >>= 1;
-  }
-  return r;
-}
-
-__device__ __forceinline__ uint64_t inv(uint64_t x) {
-  return pow_u64(x, gl::P - 2);
-}
-
 __global__ void scale_powers_kernel(const uint64_t* __restrict__ x,
                                     uint64_t* __restrict__ out,
                                     const uint64_t* __restrict__ base_ptr,
@@ -56,8 +43,8 @@ __global__ void scale_powers_kernel(const uint64_t* __restrict__ x,
   const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
   const uint64_t base = __ldg(base_ptr);
-  const uint64_t step = pow_u64(base, static_cast<uint64_t>(stride));
-  uint64_t w = pow_u64(base, static_cast<uint64_t>(first));
+  const uint64_t step = gl::pow_u64(base, static_cast<uint64_t>(stride));
+  uint64_t w = gl::pow_u64(base, static_cast<uint64_t>(first));
   for (int64_t i = first; i < n; i += stride, w = gl::mul(w, step))
     for (int64_t c = 0; c < cols; ++c)
       out[c * n + i] = gl::mul(__ldg(x + c * n + i), w);
@@ -72,8 +59,8 @@ __global__ void selectors_kernel(const uint64_t* __restrict__ cls,
   if (t >= threads) return;
   const uint64_t shift = __ldg(cls), c_n = __ldg(cls + 1),
                  c_n_last = __ldg(cls + 2);
-  const uint64_t step = pow_u64(gen, static_cast<uint64_t>(threads));
-  uint64_t x = gl::mul(shift, pow_u64(gen, static_cast<uint64_t>(t)));
+  const uint64_t step = gl::pow_u64(gen, static_cast<uint64_t>(threads));
+  uint64_t x = gl::mul(shift, gl::pow_u64(gen, static_cast<uint64_t>(t)));
   // d[k] = x_k - 1, q[k] = (x_k - 1)(x_k - g^{-1}), pre[k] = q_0 ... q_k
   uint64_t d[SEL_CHUNK], q[SEL_CHUNK], pre[SEL_CHUNK];
   uint64_t acc = 1;
@@ -92,7 +79,7 @@ __global__ void selectors_kernel(const uint64_t* __restrict__ cls,
     x = gl::mul(x, step);
   }
   // inv_acc = 1 / (q_0 ... q_k) for the k of each step below
-  uint64_t inv_acc = inv(acc);
+  uint64_t inv_acc = gl::inv(acc);
 #pragma unroll
   for (int k = SEL_CHUNK - 1; k >= 0; --k) {
     const int64_t i = t + k * threads;

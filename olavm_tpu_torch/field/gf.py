@@ -5,8 +5,9 @@ uint64 values (< p); values >= 2^63 read as negative int64. The TPU package's
 (lo, hi) u32 pair exists only because the TPU has no 64-bit multiply.
 
 On a CUDA tensor, `mul`, `add` and `sub` launch the hand-written kernels of
-csrc/gf_mul.cu (K3 and its add/sub siblings), and `eval_points` (every
-polynomial at every point of a power table) launches K5, csrc/eval.cu. On
+csrc/gf_mul.cu (K3 and its add/sub siblings), `inv` launches K7
+(csrc/gf_inv.cu), `prefix_prod` K8 (csrc/scan.cu), and `eval_points` (every
+polynomial at every point of a power table) K5, csrc/eval.cu. On
 a CPU tensor they run the plain versions beside them (`mul_plain`, ...), which use only int64 torch
 ops: torch has no add, shift or compare for uint64, so the plain versions
 work on 32-bit limbs held in int64, mask after every `>>` (it sign-extends
@@ -260,8 +261,32 @@ def exp_const(a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """Element-wise a^(p-2) (0 maps to 0)."""
-    return exp_const(a, P - 2)
+    """Element-wise a^(p-2) (0 maps to 0): K7 (csrc/gf_inv.cu, batch
+    inversion, one launch) on a CUDA tensor, inv_plain on a CPU tensor."""
+    if a.device.type != "cuda":
+        return inv_plain(a)
+    a = a.contiguous()
+    kernels.require_cuda_int64(a)
+    out = torch.empty_like(a)
+    if a.numel():
+        kernels.check(kernels.lib("gf_inv").gl_inv(
+            a.data_ptr(), out.data_ptr(), a.numel(), kernels.stream_ptr(a)),
+            "gf_inv")
+        kernels.count("gf_inv")
+    return out
+
+
+def inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: a^(p-2) by square and multiply on mul_plain (63
+    squarings and 62 products; 0 maps to 0)."""
+    result, base, e = None, a, P - 2
+    while e:
+        if e & 1:
+            result = base if result is None else mul_plain(result, base)
+        e >>= 1
+        if e:
+            base = mul_plain(base, base)
+    return result
 
 
 def powers(base, n: int, device) -> torch.Tensor:
@@ -419,16 +444,46 @@ def _sum_plain(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def prefix_prod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Inclusive modular prefix product, log depth (Hillis-Steele scan, as
-    olavm_tpu/field/gf.py:317)."""
+def prefix_prod(x: torch.Tensor, dim: int = -1,
+                exclusive: bool = False) -> torch.Tensor:
+    """Modular prefix product along `dim`: inclusive, or with `exclusive`
+    [1, x_0, x_0 x_1, ...] (the last product dropped). K8 (csrc/scan.cu,
+    one launch and the zeroing of its scratch) on a CUDA tensor,
+    prefix_prod_plain on a CPU tensor."""
+    if x.device.type != "cuda":
+        return prefix_prod_plain(x, dim, exclusive)
+    y = x.movedim(dim, -1).contiguous()
+    kernels.require_cuda_int64(y)
+    out = torch.empty_like(y)
+    n = y.shape[-1]
+    rows = y.numel() // n if n else 0
+    if rows:
+        lib = kernels.lib("scan")
+        # the tiles' counter, flags, products and prefixes, zeroed in the
+        # stream (a program's capture records the fill)
+        state = torch.zeros(lib.gl_prefix_prod_state_words(rows, n),
+                            dtype=torch.int64, device=y.device)
+        kernels.check(lib.gl_prefix_prod(
+            y.data_ptr(), out.data_ptr(), state.data_ptr(), state.numel(),
+            rows, n, int(exclusive), kernels.stream_ptr(y)), "prefix_prod")
+        kernels.count("prefix_prod")
+    return out.movedim(-1, dim)
+
+
+def prefix_prod_plain(x: torch.Tensor, dim: int = -1,
+                      exclusive: bool = False) -> torch.Tensor:
+    """Plain version of K8: log depth (Hillis-Steele scan on mul_plain, as
+    olavm_tpu/field/gf.py:317); the exclusive form shifts the inclusive
+    one a place and puts 1 first."""
     y = x.movedim(dim, -1)
     n = y.shape[-1]
     d = 1
     while d < n:
         shifted = torch.cat([torch.ones_like(y[..., :d]), y[..., :-d]], dim=-1)
-        y = mul(y, shifted)
+        y = mul_plain(y, shifted)
         d <<= 1
+    if exclusive:
+        y = torch.cat([torch.ones_like(y[..., :1]), y[..., :-1]], dim=-1)
     return y.movedim(-1, dim)
 
 

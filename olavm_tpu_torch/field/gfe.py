@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from . import gf
+from .. import kernels
 
 W = 7
 
@@ -105,10 +106,35 @@ def powers(base: GFE, n: int) -> GFE:
 
 
 def inv(a: GFE) -> GFE:
-    """Norm trick: (a0 - a1*phi) / (a0^2 - 7*a1^2)."""
-    norm = gf.sub(gf.mul(a.re, a.re), gf.mul_u32(gf.mul(a.im, a.im), W))
-    ninv = gf.inv(norm)
-    return GFE(gf.mul(a.re, ninv), gf.mul(gf.neg(a.im), ninv))
+    """Norm trick: (a0 - a1*phi) / (a0^2 - 7*a1^2) (0 maps to 0): K7's
+    extension entry (csrc/gf_inv.cu, one launch) on CUDA tensors, inv_plain
+    on CPU tensors."""
+    if not gf._on_cuda(a.re, a.im):
+        return inv_plain(a)
+    re, im = a.re.contiguous(), a.im.contiguous()
+    if re.shape != im.shape:
+        raise ValueError(f"parts of shapes {tuple(re.shape)} and "
+                         f"{tuple(im.shape)}")
+    kernels.require_cuda_int64(re, im)
+    out = GFE(torch.empty_like(re), torch.empty_like(im))
+    if re.numel():
+        kernels.check(kernels.lib("gf_inv").gl_ext_inv(
+            re.data_ptr(), im.data_ptr(), out.re.data_ptr(),
+            out.im.data_ptr(), re.numel(), kernels.stream_ptr(re)),
+            "gf_ext_inv")
+        kernels.count("gf_ext_inv")
+    return out
+
+
+def inv_plain(a: GFE) -> GFE:
+    """Plain version of K7's extension entry: the norm, its inverse by
+    gf.inv_plain, then the conjugate's parts times it, on the plain ops."""
+    norm = gf.sub_plain(gf.mul_plain(a.re, a.re),
+                        gf.mul_plain(gf.mul_plain(a.im, a.im),
+                                     gf.scalar(W, a.im.device)))
+    ninv = gf.inv_plain(norm)
+    neg_im = gf.sub_plain(gf.scalar(0, a.im.device), a.im)
+    return GFE(gf.mul_plain(a.re, ninv), gf.mul_plain(neg_im, ninv))
 
 
 def sum_reduce(x: GFE, dim: int = -1) -> GFE:

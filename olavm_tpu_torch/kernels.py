@@ -35,7 +35,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("blake3", "eval", "gf_mul", "ntt", "poseidon", "quotient")
+SOURCES = ("blake3", "eval", "gf_inv", "gf_mul", "ntt", "poseidon", "quotient",
+           "scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +45,8 @@ LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
             "blake3_leaves": 0, "blake3_level": 0, "blake3_absorb": 0,
             "poseidon_leaves": 0, "poseidon_level": 0, "poseidon_absorb": 0,
             "eval_points": 0, "constraints": 0, "scale_powers": 0,
-            "quotient_selectors": 0}
+            "quotient_selectors": 0, "gf_inv": 0, "gf_ext_inv": 0,
+            "prefix_prod": 0}
 # kernel name -> launches the host issued itself since the last reset (a
 # replayed program's launches are counted in LAUNCHES only)
 HOST_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
@@ -73,6 +75,10 @@ _SIGNATURES = {
     "eval": {"gl_eval_points": [_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT,
                                 _INT, _INT, _I64, _VP],
              "gl_eval_occupancy": [_INT, _I64, ctypes.POINTER(_INT)]},
+    "gf_inv": {
+        "gl_inv": [_VP, _VP, _I64, _VP],
+        "gl_ext_inv": [_VP, _VP, _VP, _VP, _I64, _VP],
+    },
     "gf_mul": {
         "gl_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
         "gl_add": [_VP, _VP, _VP, _I64, _I64, _I64, _VP],
@@ -92,7 +98,13 @@ _SIGNATURES = {
         "gl_quotient_selectors": [_VP, _VP, _I64, ctypes.c_uint64,
                                   ctypes.c_uint64, _VP],
     },
+    "scan": {
+        "gl_prefix_prod": [_VP, _VP, _VP, _I64, _I64, _I64, _INT, _VP],
+        "gl_prefix_prod_state_words": [_I64, _I64],
+    },
 }
+# entry points that return something other than an error code
+_RESTYPES = {"gl_prefix_prod_state_words": _I64}
 
 
 def reset_launches() -> None:
@@ -244,7 +256,7 @@ def lib(name: str) -> ctypes.CDLL:
             handle = ctypes.CDLL(str(_lib_path(name)))
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(handle, fn).argtypes = argtypes
-                getattr(handle, fn).restype = _INT
+                getattr(handle, fn).restype = _RESTYPES.get(fn, _INT)
             _libs[name] = handle
         return _libs[name]
 

@@ -2,17 +2,18 @@
 polynomials; counterpart of olavm_tpu/stark/ctl_device.py
 (circuits/src/stark/cross_table_lookup.rs:224-311, permutation.rs:103-160).
 
-The reference's row-by-row cumulative product is the log-depth scan
-gf.prefix_prod, filters are selects, and the denominators of the
-permutation argument are inverted element-wise. Each Z is one program
+The reference's row-by-row cumulative product is gf.prefix_prod (on the
+card one launch of K8, csrc/scan.cu; the permutation Z's exclusive form in
+the same launch), filters are selects, and the denominators of the
+permutation argument are inverted element-wise by gf.inv (K7,
+csrc/gf_inv.cu). Each Z is one program
 (utils/jitcache.py): a CUDA graph on the card, keyed by the view's column
 structure and the trace's shape, replayed for every later view of that
 structure. The challenges enter a program as a device bank, an input that
 is filled before each replay, and are read through DevChallenge: no
 challenge is a host value inside a program (a capture would bake it into a
 fill or a kernel argument, and a replay would compute with an earlier
-prove's challenge). The scan stays plain torch in this version (its
-products launch K3 on the card); a scan kernel is later work.
+prove's challenge).
 """
 
 from __future__ import annotations
@@ -180,8 +181,7 @@ def permutation_z(trace: torch.Tensor, bank: torch.Tensor, instances
             w = gf.mul(w, beta)
         num = gf.mul(num, lhs)
         den = gf.mul(den, rhs)
-    zfull = gf.prefix_prod(gf.mul(num, gf.inv(den)))
-    return torch.cat([gf.ones((1,), device), zfull[:-1]])
+    return gf.prefix_prod(gf.mul(num, gf.inv(den)), exclusive=True)
 
 
 def permutation_z_polys_device(stark, config, trace: torch.Tensor,

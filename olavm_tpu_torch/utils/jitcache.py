@@ -146,9 +146,10 @@ class Program:
         self.fn = fn
         self.graphs: dict = {}
         # since the program was made: graphs captured and dropped, replays
-        # and the launches they ran, capture seconds
+        # and the launches they ran (in all and by kernel), capture seconds
         self.captures = self.dropped = self.replays = 0
         self.replayed_launches = 0
+        self.replayed_kernels = dict.fromkeys(kernels.LAUNCHES, 0)
         self.capture_seconds = 0.0
 
     def __call__(self, *inputs: torch.Tensor):
@@ -168,6 +169,8 @@ class Program:
         outs = entry.replay(inputs)
         self.replays += 1
         self.replayed_launches += sum(entry.launches.values())
+        for k, v in entry.launches.items():
+            self.replayed_kernels[k] += v
         return outs if self._returns_tuple else outs[0]
 
     def _capture(self, device, inputs, warm_out) -> _Graph:
@@ -261,8 +264,8 @@ def cached_jit(key, fn) -> Program:
 
 def stats() -> dict:
     """Per key (its repr), since its program was made: captures, graphs
-    dropped (begin_prove), replays, the kernel launches those replays ran,
-    capture seconds; and of the graphs it holds now: graph nodes, the bytes
+    dropped (begin_prove), replays, the kernel launches those replays ran
+    (in all and by kernel), capture seconds; and of the graphs it holds now: graph nodes, the bytes
     their captures added to the shared pool, the kernel launches of one
     replay of each (summed over the key's input shapes), in all and by
     kernel."""
@@ -281,6 +284,7 @@ def stats() -> dict:
             "kernels": {k: n for k in kernels.LAUNCHES
                         if (n := sum(g.launches.get(k, 0) for g in graphs))},
             "replayed_launches": prog.replayed_launches,
+            "replayed_kernels": dict(prog.replayed_kernels),
         }
     return out
 

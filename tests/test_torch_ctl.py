@@ -84,3 +84,38 @@ def test_permutation_zs_match_host(toy):
     assert len(got) == len(want) > 0
     for w, p in zip(want, got):
         np.testing.assert_array_equal(convert.to_u64(p), w)
+
+
+def test_permutation_z_with_a_zero_denominator_matches_jax_device(toy):
+    """A row whose permutation denominator is 0 (inverted to 0, as x^(p-2)
+    gives): the port's permutation_z, with its inversion and exclusive
+    scan, against olavm_tpu's device Z polys on the same trace."""
+    system, config, traces = toy
+    stark = system.starks[0]
+    host_ch, port_ch = _challengers([2, 7])
+    sets = get_n_grand_product_challenge_sets(
+        host_ch, config.num_challenges, stark.permutation_batch_size())
+    port_sets = get_n_grand_product_challenge_sets(
+        port_ch, config.num_challenges, stark.permutation_batch_size())
+    values, offset = tctl.permutation_bank(port_sets)
+    meta = tctl.permutation_meta(stark, config, port_sets, offset)
+    # row 5 of the first instance's right-hand side made 0:
+    # gamma + sum_i t[b_i] beta^i = 0
+    column_pairs, off = meta[0][0]
+    beta, gamma = values[off], values[off + 1]
+    trace = traces[0].copy()
+    P = 0xFFFFFFFF00000001
+    rest = sum(int(trace[b][5]) * pow(beta, i, P)
+               for i, (_, b) in enumerate(column_pairs) if i)
+    trace[column_pairs[0][1]][5] = (-gamma - rest) % P
+    want = jctl.permutation_z_polys_device(stark, config,
+                                           jgf.from_u64(trace), sets)
+    bank = convert.from_u64(np.asarray(values, dtype=np.uint64), "cpu")
+    got = [tctl.permutation_z(convert.from_u64(trace, "cpu"), bank, m)
+           for m in meta]
+    assert len(got) == len(want) > 0
+    for p, w in zip(got, want):
+        np.testing.assert_array_equal(convert.to_u64(p), jgf.to_u64(w))
+    # the zero denominator is there: Z's quotient at row 5 is 0
+    z = convert.to_u64(got[0])
+    assert z[6] == 0 and z[5] != 0

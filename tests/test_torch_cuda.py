@@ -4,6 +4,10 @@ absorb kernels also against the one-shot leaf kernels, and the streamed
 commit against the same commit on the CPU), and the ToySystem proof through
 the kernels equal to olavm_tpu's host proof.
 
+K7 (inversion) and K8 (the grand-product scan) are also checked on all
+zeros, a zero in every chunk, lengths around a tile and inside a CUDA
+graph replayed on other inputs.
+
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -652,3 +656,70 @@ def test_k6_on_a_row_block_equals_plain(dev):
                     convert.from_u64(_rand(m, 5), dev))
     want = ct.evaluate_plain(k6.plan, inp)
     assert torch.equal(cg.evaluate(k6, inp), want)
+
+
+def _inv_inputs(n: int, chunk: int, seed: int) -> dict:
+    """K7's inputs: random points with the edge values, all zeros, and a
+    zero in every chunk of a thread (the first of each)."""
+    rnd = np.concatenate([EDGE, _rand(n, seed)])[-n:]
+    every = rnd.copy()
+    every[:-(-n // chunk)] = 0
+    return {"random": rnd, "zeros": np.zeros(n, dtype=np.uint64),
+            "zero in every chunk": every}
+
+
+@pytest.mark.parametrize("n", [1, 7, 16, 17, 1000, 1 << 14, (1 << 21) + 3])
+def test_inv_kernel_matches_plain(dev, n):
+    from olavm_tpu_torch.field import gfe
+
+    for name, a in _inv_inputs(n, 16, n).items():
+        x = convert.from_u64(a, dev)
+        before = kernels.LAUNCHES["gf_inv"]
+        got = gf.inv(x)
+        assert kernels.LAUNCHES["gf_inv"] == before + 1
+        assert torch.equal(got, gf.inv_plain(x)), name
+    for name, a in _inv_inputs(n, 8, n + 1).items():
+        b = _rand(n, n + 2)
+        b[a == 0] = 0
+        x = gfe.GFE(convert.from_u64(a, dev), convert.from_u64(b, dev))
+        before = kernels.LAUNCHES["gf_ext_inv"]
+        got = gfe.inv(x)
+        assert kernels.LAUNCHES["gf_ext_inv"] == before + 1
+        want = gfe.inv_plain(x)
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im), name
+    if n == 1000:
+        np.testing.assert_array_equal(
+            convert.to_u64(gf.inv(convert.from_u64(a, dev))),
+            np.array([pow(int(v), g.P - 2, g.P) for v in a], dtype=np.uint64))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 2), (1, 3), (1, 2047),
+                                    (1, 2048), (1, 2049), (1, 1 << 12),
+                                    (3, 5000), (1, 40 * 2048 + 5),
+                                    (1, (1 << 21) + 1), (2, 1 << 20)])
+def test_prefix_prod_kernel_matches_plain(dev, rows, n):
+    x = convert.from_u64(_rand((rows, n), n), dev)
+    x[:, n // 2] = 0 if rows > 1 else 1
+    for exclusive in (False, True):
+        before = kernels.LAUNCHES["prefix_prod"]
+        got = gf.prefix_prod(x, exclusive=exclusive)
+        assert kernels.LAUNCHES["prefix_prod"] == before + 1
+        assert torch.equal(got, gf.prefix_prod_plain(x, exclusive=exclusive))
+    # the same bytes on every launch, whatever order the tiles ran in
+    want = gf.prefix_prod_plain(x)
+    for _ in range(3):
+        assert torch.equal(gf.prefix_prod(x), want)
+
+
+def test_prefix_prod_kernel_in_a_graph_replays(dev):
+    x = convert.from_u64(_rand(70000, 9), dev)
+    y = convert.from_u64(_rand(70000, 10), dev)
+    static = x.clone()
+    gf.prefix_prod(static, exclusive=True)  # load the library first
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gf.prefix_prod(static, exclusive=True)
+    for z in (x, y, x):
+        static.copy_(z)
+        graph.replay()
+        assert torch.equal(out, gf.prefix_prod_plain(z, exclusive=True))
