@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the NTT (K1), Poseidon, absorb, evaluation (K5), inversion (K7) and
-scan (K8) kernels of this checkout at the main path's shapes, and count the SASS instructions of their
-kernels.
+"""Time the NTT (K1), Poseidon, absorb, evaluation (K5), inversion (K7),
+scan (K8) and FRI composition (K9, K10) kernels of this checkout at the main
+path's shapes, and count the SASS instructions of their kernels.
 
     python3 chip_kernel_times.py                    # all; one CUDA card, nvcc
     python3 chip_kernel_times.py --kernel poseidon  # libposeidon's kernels only
@@ -10,6 +10,7 @@ kernels.
     python3 chip_kernel_times.py --kernel quotient  # the quotient's classes
     python3 chip_kernel_times.py --kernel inv       # K7, inversion
     python3 chip_kernel_times.py --kernel scan      # K8, the scan
+    python3 chip_kernel_times.py --kernel fri       # K9, K10: FRI composition
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
 after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
@@ -44,6 +45,14 @@ fill), the bound (chip_smoke.bound) and its share, and the device ms of the
 K3 chain each replaced on the same inputs (inversion by square and multiply
 on gf.mul, 125 launches, 131 with the norm; the Hillis-Steele scan, a fill,
 a cat and a K3 launch a step).
+For `fri`, "rows" holds K9 (fri_combine) and K10 (fri_quotient) at the FRI
+composition's shapes of CpuStark at N=94000 and N=376000 and of
+PoseidonStark at K=512 (chip_smoke.fri_case, three batches): CUDA-event ms,
+device ms, the bound (chip_smoke.fri_combine_bound, fri_quotient_bound) and
+its share, each checked against its plain version; and per shape the whole
+composition (fri_composition: K9, K1, K10, K1 inverse, the coset scaling)
+in device ms beside the op-by-op chain it replaced (fri_composition_ops),
+with the launches and the peak bytes allocated of one call of each.
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -91,12 +100,17 @@ SHAPES = {
     # K8: the CTL and permutation Zs' lengths at N=94000 and above
     "scan": (1 << 10, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22,
              1 << 24),
+    # K9, K10: (trace, Z, quotient) widths, permutation Zs, log2 rows
+    "fri": {"N=94000 CpuStark": ((94, 78, 12), 0, 20),
+            "K=512 PoseidonStark": ((134, 6, 12), 0, 20),
+            "N=376000 CpuStark": ((94, 78, 12), 0, 22)},
 }
 # the csrc sources that hold each choice's kernels
 LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
         "absorb": ("blake3", "poseidon"), "eval": ("eval",),
         "quotient": ("gf_mul", "ntt", "quotient"),
-        "inv": ("gf_inv", "gf_mul"), "scan": ("scan", "gf_mul")}
+        "inv": ("gf_inv", "gf_mul"), "scan": ("scan", "gf_mul"),
+        "fri": ("fri", "ntt", "quotient", "gf_mul", "gf_inv")}
 # libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
 # the FRI trees' arity-16 extension leaves, one permutation per leaf) and
 # tree levels of n digests
@@ -249,6 +263,8 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return time_quotient(gen, cuda_ms)
     if kernel in ("inv", "scan"):
         return time_inv_scan(kernel, gen, cuda_ms)
+    if kernel == "fri":
+        return time_fri(cuda_ms)
     if kernel == "ntt":
         from olavm_tpu_torch.ntt import ntt as dntt
 
@@ -345,6 +361,77 @@ def time_inv_scan(kernel: str, gen, cuda_ms) -> dict:
                       "share": least["bound_ms"] / dev_ms,
                       "k3_chain_device_ms": chip_smoke.device_ms(chain, 3)}
     return {"rows": rows}
+
+
+def time_fri(cuda_ms) -> dict:
+    """{"rows": {name: {"ms", "device_ms", "bound_ms", "bound_by", "share",
+    "plain_equal"}}, "composition": {shape: {"device_ms", "ops_device_ms",
+    "launches", "ops_launches", "peak_bytes", "ops_peak_bytes"}}} for K9 and
+    K10 at SHAPES["fri"]; the peaks are the bytes allocated above what was
+    held before one call."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.ntt import ntt as dntt
+    from olavm_tpu_torch.stark import fri_kernels as fk
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    rng = np.random.default_rng(0)
+    rate = chip_smoke.FRI_RATE_BITS
+    rows, comp = {}, {}
+
+    def launches(call):
+        kernels.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    for shape, (widths, num_perm, log_n) in SHAPES["fri"].items():
+        coeffs, bank, plan = chip_smoke.fri_case(widths, num_perm, 1 << log_n,
+                                                 rng, "cuda")
+        combined = fk.fri_combine(coeffs, bank, plan, rate)
+        lde = dntt.ntt(combined)
+        for name, call, plain, least in (
+                ("fri_combine", lambda: fk.fri_combine(coeffs, bank, plan, rate),
+                 lambda: fk.fri_combine_plain(coeffs, bank, plan, rate),
+                 chip_smoke.fri_combine_bound(plan, 1 << log_n, rate)),
+                ("fri_quotient", lambda: fk.fri_quotient(lde, bank, plan),
+                 lambda: fk.fri_quotient_plain(lde, bank, plan),
+                 chip_smoke.fri_quotient_bound(len(plan), lde.shape[-1]))):
+            equal = torch.equal(call(), plain())
+            dev_ms = chip_smoke.device_ms(call, 10)
+            rows[f"{name} {shape}"] = {
+                "ms": cuda_ms(call, 10), "device_ms": dev_ms,
+                "bound_ms": least["bound_ms"], "bound_by": least["bound_by"],
+                "share": least["bound_ms"] / dev_ms, "plain_equal": equal}
+        del combined, lde
+        torch.cuda.empty_cache()
+
+        def kernels_call():
+            return tpd.fri_composition(*coeffs, bank, plan=plan, rate_bits=rate)
+
+        def ops_call():
+            return tpd.fri_composition_ops(*coeffs, bank, plan=plan,
+                                           rate_bits=rate)
+
+        comp[shape] = {"device_ms": chip_smoke.device_ms(kernels_call, 5),
+                       "ops_device_ms": chip_smoke.device_ms(ops_call, 2),
+                       "launches": launches(kernels_call),
+                       "ops_launches": launches(ops_call),
+                       "peak_bytes": None, "ops_peak_bytes": None}
+        for key, call in (("peak_bytes", kernels_call),
+                          ("ops_peak_bytes", ops_call)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            call()
+            torch.cuda.synchronize()
+            comp[shape][key] = torch.cuda.max_memory_allocated() - base
+        del coeffs, bank
+        torch.cuda.empty_cache()
+    return {"rows": rows, "composition": comp}
 
 
 def time_absorb(gen, cuda_ms) -> dict:

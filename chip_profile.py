@@ -34,7 +34,8 @@ tag (`ctlz`, `permz`, `qclass`, `extpows`, `fricomp`, `frifold`,
 of the runtime call that launched it (a kernel launch, or the graph launch
 of a replay), to the range around that call, or to "host" (issued by the
 host outside any program). Per tag it gives, by kernel class (K3, add,
-sub, cat, fill, K7, K8, the rest), the launches and device milliseconds.
+sub, cat, fill, K7, K8, K9, K10, the rest), the launches and device
+milliseconds.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ KERNEL_CLASSES = (
     ("fill", re.compile(r"FillFunctor")),
     ("gf_inv", re.compile(r"inv_kernel")),
     ("prefix_prod", re.compile(r"scan_kernel")),
+    ("fri_combine", re.compile(r"fri::combine_kernel")),
+    ("fri_quotient", re.compile(r"fri::quotient_kernel")),
 )
 PROGRAM_RANGE = "program:"
 

@@ -27,10 +27,15 @@ without printing a result:
    2^64 - 1) against both; no K6 slice may spill (ptxas -v); the coset
    scaling and selector kernels against their plain versions at (94, 2^20);
    K7, inversion, in the base field at 2^21 (the permutation Z's) and in
-   the extension at 2^24 (the FRI composition's largest LDE), and K8, the
-   grand-product scan, inclusive and exclusive at 2^21, on two rows and at
-   lengths 1, 3 and a tile + 1, each with edge values and zeros (all zeros,
-   a zero in every chunk of a thread);
+   the extension at 2^24 (the largest LDE of the FRI composition, which
+   inverted with it until K10), and K8, the grand-product scan, inclusive
+   and exclusive at 2^21, on two rows and at lengths 1, 3 and a tile + 1,
+   each with edge values and zeros (all zeros, a zero in every chunk of a
+   thread); K9 and K10, the FRI composition's combine and quotient passes,
+   at the composition's shapes of CpuStark at N=94000 and PoseidonStark at
+   K=512 (n = 2^20, an LDE of 2^23, three batches) and on edge values with
+   a zero norm, and the composition they make against the op-by-op chain
+   it replaced (fri_composition_ops);
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card four times on one trace generation, as a capture and a replay with
    each Merkle hasher: with blake3 caps (its programs captured), then
@@ -92,10 +97,12 @@ the rank's own process), counting the launches the host issued and those
 that graph replays ran (each capture records its graph's launches, and
 each replay adds them); the run must have launched its
 hasher's kernels (K1, K2, K3, add, sub, K5, K6 with the coset scaling and
-selector kernels, K7 in both fields, K8, and the hasher's leaf, absorb and
-level kernels), none of the other hasher's, no K3, add or sub inside a
-quotient program, no plain inversion or scan on a CUDA tensor (the chains
-K7 and K8 replaced refuse one during the prove), and its leaf and absorb
+selector kernels, K7 in the base field, K8, K9, K10, and the hasher's
+leaf, absorb and level kernels), none of the other hasher's and no K7 in
+the extension, no K3, add or sub inside a quotient program, none of those
+or K7 inside a FRI composition program, no plain inversion, scan or
+composition pass on a CUDA tensor (the chains K7-K10 replaced refuse one
+during the prove), and its leaf and absorb
 kernels as often as its commits' shapes need. Each records prove and verify seconds
 (a group verifies on rank 0), peak device memory and the host's peak
 resident memory.
@@ -1189,6 +1196,190 @@ def check_inv_scan_kernels(device, rng) -> dict:
     return results
 
 
+# K9 and K10 (csrc/fri.cu), the FRI composition, at the main path's shapes:
+# (trace, Z, quotient) widths, the permutation Zs among the Zs (the CTL Zs
+# follow them) and log2 of the rows, of CpuStark at N=94000 and of
+# PoseidonStark at K=512
+FRI_SHAPES = {"N=94000 CpuStark": ((94, 78, 12), 0, 20),
+              "K=512 PoseidonStark": ((134, 6, 12), 0, 20)}
+FRI_RATE_BITS = 3
+
+
+def fri_case(widths, num_perm: int, n: int, rng, device, edge: bool = False):
+    """A FRI composition of fri_instance_for_stark's shape (batch 0 at zeta
+    over the trace, Z and quotient oracles, batch 1 at g zeta over the
+    trace and the Zs, batch 2 at g^-1 over the CTL Zs, rows num_perm on)
+    with n coefficients an oracle: random alpha, points and openings
+    (numpy, from `rng`), planned by prover_device.composition_bank; with
+    `edge` the coefficients and the whole bank are EDGE_VALUES, and batch
+    1's point is a point of the LDE coset (a zero norm). Returns (the
+    oracles' coefficient tensors, the bank, the plan)."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch.field import gf
+    from olavm_tpu_torch.field import goldilocks as g
+    from olavm_tpu_torch.stark.fri import FriBatchInfo, FriInstance
+    from olavm_tpu_torch.stark.prover_device import composition_bank
+
+    def ext():
+        return tuple(int(v) for v in rng.integers(0, gf.P, 2, dtype=np.uint64))
+
+    trace, zs, quot = widths
+    rows = ([(0, i) for i in range(trace)] + [(1, i) for i in range(zs)],
+            [(2, i) for i in range(quot)])
+    log_n = n.bit_length() - 1
+    points = [ext(), ext(), (g.inv(g.primitive_root_of_unity(log_n)), 0)]
+    polys = [rows[0] + rows[1], rows[0], [(1, i) for i in range(num_perm, zs)]]
+    instance = FriInstance([FriBatchInfo(np.asarray(p, dtype=np.uint64), q)
+                            for p, q in zip(points, polys)])
+    plan, bank = composition_bank(instance, ext(), [ext() for _ in polys])
+    if edge:
+        size = n << FRI_RATE_BITS
+        x = g.MULTIPLICATIVE_GROUP_GENERATOR * pow(
+            g.primitive_root_of_unity(log_n + FRI_RATE_BITS),
+            int(rng.integers(size)), g.P) % g.P
+        bank = edge_values(rng, len(bank))
+        bank[plan[1][1]:plan[1][1] + 2] = (x, 0)
+        coeffs = [gf.from_u64(edge_values(rng, (w, n)), device)
+                  for w in widths]
+    else:
+        gen = torch.Generator(device=device).manual_seed(
+            int(rng.integers(1 << 31)))
+        coeffs = [torch.randint(0, 1 << 62, (w, n), generator=gen,
+                                device=device) for w in widths]
+    return coeffs, gf.from_u64(np.asarray(bank, dtype=np.uint64), device), plan
+
+
+def fri_combine_bound(plan, n: int, rate_bits: int) -> dict:
+    """K9's least time: each row that a batch reads once (8 bytes a
+    column), the (B, 2, size) output written; two products a row, batch and
+    column into 160-bit sums, each sum reduced once and times shift^j, and
+    shift's next power a column."""
+    rows = {(oi, p0 + r) for runs, _ in plan for oi, p0, k, _ in runs
+            for r in range(k)}
+    terms = 2 * n * sum(k for runs, _ in plan for _, _, k, _ in runs)
+    sums = 2 * len(plan) * n
+    return bound(8 * n * len(rows) + 16 * len(plan) * (n << rate_bits),
+                 terms * (OPS_PRODUCT + OPS_ACCUMULATE)
+                 + sums * (OPS_REDUCE_WIDE + OPS_MUL) + n * OPS_MUL,
+                 (terms + sums + n) * MUL_PRODUCT)
+
+
+# K10's work a point of batch b (csrc/fri.cu): the norm's square, its
+# inversion by batch (3 products), the quotient times 1/N (2); the
+# numerator times the conjugate as two sums of two unreduced products;
+# x - z_re, the norm's difference and the numerator's two; from the second
+# batch on, F alpha^len + q as two more sums of two products and q. A point
+# adds the step of x and the bump F x (3 products)
+FRI_Q_PRODUCTS, FRI_Q_TERMS, FRI_Q_SUMS, FRI_Q_ADDS = 6, 4, 2, 4
+FRI_Q_LATER_TERMS, FRI_Q_LATER_SUMS = 4, 2
+FRI_Q_POINT_PRODUCTS = 3
+
+
+def fri_quotient_bound(batches: int, size: int) -> dict:
+    """K10's least time: the (B, 2, size) values read and (2, size)
+    written, against the work a point above."""
+    later = batches - 1
+    products = batches * FRI_Q_PRODUCTS + FRI_Q_POINT_PRODUCTS
+    terms = batches * FRI_Q_TERMS + later * FRI_Q_LATER_TERMS
+    sums = batches * FRI_Q_SUMS + later * FRI_Q_LATER_SUMS
+    ops = (products * OPS_MUL + terms * (OPS_PRODUCT + OPS_ACCUMULATE)
+           + later * 2 * OPS_ACCUMULATE + sums * OPS_REDUCE_WIDE
+           + batches * FRI_Q_ADDS * OPS_ADD)
+    return bound(16 * (batches + 1) * size, ops * size,
+                 (products + terms) * MUL_PRODUCT * size)
+
+
+def check_fri_kernels(device, rng) -> dict:
+    """K9 (fri_combine) and K10 (fri_quotient) against their plain versions,
+    exactly, at the composition's shapes of CpuStark at N=94000 and of
+    PoseidonStark at K=512 (FRI_SHAPES: n = 2^20, an LDE of 2^23, the three
+    batches as the prove plans them) and on EDGE_VALUES with a zero norm
+    at n = 2^10; the whole composition (fri_composition: K9, K1, K10, K1
+    inverse, the coset scaling) against fri_composition_ops, the op-by-op
+    chain it replaced, at both shapes. Timed by CUDA events at CpuStark's
+    shape."""
+    import torch
+
+    from olavm_tpu_torch.ntt import ntt as dntt
+    from olavm_tpu_torch.stark import fri_kernels as fk
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    results, errs, timed = {}, {"fri_combine": 0, "fri_quotient": 0}, {}
+    cases = [(name, (*shape[:2], 1 << shape[2]), False)
+             for name, shape in FRI_SHAPES.items()]
+    cases.append(("edge values, a zero norm", ((5, 17, 3), 1, 1 << 10), True))
+    for name, (widths, num_perm, n), edge in cases:
+        coeffs, bank, plan = fri_case(widths, num_perm, n, rng, device, edge)
+        combined = fk.fri_combine(coeffs, bank, plan, FRI_RATE_BITS)
+        errs["fri_combine"] = max(errs["fri_combine"], max_abs_err(
+            combined, fk.fri_combine_plain(coeffs, bank, plan, FRI_RATE_BITS)))
+        lde = dntt.ntt(combined)
+        del combined
+        errs["fri_quotient"] = max(errs["fri_quotient"], max_abs_err(
+            fk.fri_quotient(lde, bank, plan),
+            fk.fri_quotient_plain(lde, bank, plan)))
+        if not edge:
+            got = tpd.fri_composition(*coeffs, bank, plan=plan,
+                                      rate_bits=FRI_RATE_BITS)
+            want = tpd.fri_composition_ops(*coeffs, bank, plan=plan,
+                                           rate_bits=FRI_RATE_BITS)
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
+            log(f"  fri_composition {name}: against fri_composition_ops "
+                f"max_abs_err={err}")
+            if err:
+                raise AssertionError(f"fri_composition at {name} disagrees "
+                                     f"with fri_composition_ops")
+            del got, want
+        if not timed:
+            timed = {"coeffs": coeffs, "bank": bank, "plan": plan, "lde": lde,
+                     "n": n, "name": name}
+        else:
+            del coeffs, lde
+        torch.cuda.empty_cache()
+
+    coeffs, bank, plan, lde = (timed[k] for k in ("coeffs", "bank", "plan",
+                                                  "lde"))
+    n, size = timed["n"], timed["lde"].shape[-1]
+    checked = (f"{', '.join(c[0] for c in cases)}; the composition against "
+               f"fri_composition_ops at {', '.join(FRI_SHAPES)}; times at "
+               f"{timed['name']} (n = 2^{n.bit_length() - 1}, "
+               f"{len(plan)} batches)")
+    # CUDA events: a call takes far longer than the host needs to issue it
+    # (the profiler's sums, late in this process, once came out at 0.6 of
+    # the events' times for these two kernels)
+    comp_ms = cuda_ms(lambda: tpd.fri_composition(
+        *coeffs, bank, plan=plan, rate_bits=FRI_RATE_BITS), 5)
+    ops_ms = cuda_ms(lambda: tpd.fri_composition_ops(
+        *coeffs, bank, plan=plan, rate_bits=FRI_RATE_BITS), 2)
+    for name, call, plain, least in (
+            ("fri_combine",
+             lambda: fk.fri_combine(coeffs, bank, plan, FRI_RATE_BITS),
+             lambda: fk.fri_combine_plain(coeffs, bank, plan, FRI_RATE_BITS),
+             fri_combine_bound(plan, n, FRI_RATE_BITS)),
+            ("fri_quotient", lambda: fk.fri_quotient(lde, bank, plan),
+             lambda: fk.fri_quotient_plain(lde, bank, plan),
+             fri_quotient_bound(len(plan), size))):
+        ms = cuda_ms(call, 10)
+        plain_ms = cuda_ms(plain, 1)
+        results[name] = {"max_abs_err": errs[name], "ms": ms,
+                         "plain_ms": plain_ms, **least, "library_ms": None,
+                         "checked": checked, "composition_ms": comp_ms,
+                         "composition_ops_ms": ops_ms}
+        log(f"  {name}: max_abs_err={errs[name]} kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({least['bound_ms'] / ms:.0%}; {checked})")
+        if errs[name] != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    log(f"  the composition at {timed['name']}: {comp_ms:.4f} ms (the "
+        f"op-by-op chain {ops_ms:.4f})")
+    del timed, coeffs, lde
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
 def time_plain_steps(device, rng) -> dict:
     """Card times of the main-path steps that stay plain torch in this
     version (each becomes a hand-written kernel later)."""
@@ -1379,18 +1570,21 @@ def prove_and_verify(prepared, device, merkle_hasher: str):
 
 @contextlib.contextmanager
 def plain_chains_refused():
-    """Within it, the plain versions that K7 and K8 replaced on the main
-    path (the exp_const chain of inversion, gf.inv_plain, gfe.inv_plain,
-    the Hillis-Steele gf.prefix_prod_plain) raise when given a CUDA tensor:
-    on the card every inversion and scan must take its kernel."""
+    """Within it, the plain versions that K7, K8, K9 and K10 replaced on the
+    main path (the exp_const chain of inversion, gf.inv_plain,
+    gfe.inv_plain, the Hillis-Steele gf.prefix_prod_plain, the FRI
+    composition's fri_combine_plain and fri_quotient_plain) raise when
+    given a CUDA tensor: on the card every inversion, scan and composition
+    must take its kernel."""
     import torch
 
     from olavm_tpu_torch.field import gf, gfe
+    from olavm_tpu_torch.stark import fri_kernels as fk
 
     def refuse(name, fn):
         def guarded(*args, **kwargs):
             parts = [p for a in args
-                     for p in (a if isinstance(a, tuple) else (a,))]
+                     for p in (a if isinstance(a, (tuple, list)) else (a,))]
             if any(isinstance(p, torch.Tensor) and p.is_cuda for p in parts):
                 raise AssertionError(f"{name} ran on a CUDA tensor on the "
                                      f"main path")
@@ -1399,7 +1593,8 @@ def plain_chains_refused():
 
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (gf, "exp_const"), (gf, "inv_plain"), (gfe, "inv_plain"),
-        (gf, "prefix_prod_plain"))]
+        (gf, "prefix_prod_plain"), (fk, "fri_combine_plain"),
+        (fk, "fri_quotient_plain"))]
     for mod, name, fn in saved:
         setattr(mod, name, refuse(f"{mod.__name__}.{name}", fn))
     try:
@@ -1578,11 +1773,14 @@ def cli_path(workdir: str) -> dict:
 # the other Merkle hasher's kernels must not
 SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub",
                   "eval_points", "constraints", "scale_powers",
-                  "quotient_selectors", "gf_inv", "gf_ext_inv",
-                  "prefix_prod")
+                  "quotient_selectors", "gf_inv", "prefix_prod",
+                  "fri_combine", "fri_quotient")
 # kernels that the quotient's programs must not launch: K6 and its fixed
 # kernels took their place
 NOT_IN_QUOTIENT = ("gf_mul", "gf_add", "gf_sub")
+# kernels that the FRI composition's programs must not launch: K9 and K10
+# took their place (K7's extension entry left the main path with them)
+NOT_IN_FRICOMP = ("gf_mul", "gf_add", "gf_sub", "gf_ext_inv")
 PATH_KERNELS = {
     "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level",
                                 "blake3_absorb"),
@@ -1848,6 +2046,10 @@ KERNELS = (
      "olavm_tpu/field/gfe.py:115", ("gf_ext_inv",)),
     ("prefix_prod", "cuda", "olavm_tpu_torch/csrc/scan.cu",
      "olavm_tpu/field/gf.py:317", ("prefix_prod",)),
+    ("fri_combine", "cuda", "olavm_tpu_torch/csrc/fri.cu",
+     "olavm_tpu/stark/prover_device.py:733", ("fri_combine",)),
+    ("fri_quotient", "cuda", "olavm_tpu_torch/csrc/fri.cu",
+     "olavm_tpu/stark/prover_device.py:794", ("fri_quotient",)),
 )
 
 
@@ -1909,6 +2111,7 @@ def run() -> int:
     report["kernels"].update(check_stream_kernels(device, rng))
     report["kernels"].update(check_quotient_kernels(device, rng))
     report["kernels"].update(check_inv_scan_kernels(device, rng))
+    report["kernels"].update(check_fri_kernels(device, rng))
     report["plain_steps_ms"] = time_plain_steps(device, rng)
     torch.cuda.empty_cache()
 
@@ -1932,12 +2135,14 @@ def run() -> int:
                         or not rep["programs"]["replays"]):
             raise AssertionError(f"{label}: must replay programs captured "
                                  f"by an earlier prove, ran {rep['programs']}")
-        in_quotient = {k: st["kernels"] for k, st in jitcache.stats().items()
-                       if st["tag"] == "qclass"
-                       and any(n in st["kernels"] for n in NOT_IN_QUOTIENT)}
-        if in_quotient:
-            raise AssertionError(f"{label}: quotient programs launch "
-                                 f"{NOT_IN_QUOTIENT}: {in_quotient}")
+        for tag, refused in (("qclass", NOT_IN_QUOTIENT),
+                             ("fricomp", NOT_IN_FRICOMP)):
+            stray = {k: st["kernels"] for k, st in jitcache.stats().items()
+                     if st["tag"] == tag
+                     and any(n in st["kernels"] for n in refused)}
+            if stray:
+                raise AssertionError(f"{label}: {tag} programs launch "
+                                     f"{refused}: {stray}")
         rep["host_peak_resident_bytes"] = host_peak_resident()
         rep["merkle_hashing"] = check_path_launches(
             launches, hasher, prepared[2], rep["table_shapes"])

@@ -1,0 +1,351 @@
+// K9 and K10: the FRI composition's two passes (stark/fri_kernels.py), so
+// that the composition runs K9, one batched K1 forward, K10, K1 inverse and
+// the coset scaling (csrc/quotient.cu gl_scale_powers), and no K3, add,
+// sub or K7 chain.
+//
+// Replace no Pallas kernel: olavm_tpu forms the composition with jnp
+// programs (olavm_tpu/stark/prover_device.py:733-769 `horner_lde`, the
+// alpha-combination of each batch's rows and its coset LDE; :779-786
+// `fri_xs`, the coset's points; :794-831 `friquot`, each batch's quotient;
+// :834 `frimulx`, the degree bump), which the port ran as chains of K3,
+// add, sub, cat and fill launches over whole columns (about 500 a table),
+// reading each oracle row once per batch that uses it.
+//
+// K9 gl_fri_combine: for each batch b and column j < n,
+//   out[b][part][j] = shift^j * sum_{rows r of b} alpha_{b,r}[part] c_r[j]
+// (part re or im, alpha_{b,r} the bank's power of alpha for row r in batch
+// b), and 0 for n <= j < size: the (B, 2, size) input of one batched coset
+// LDE (K1 forward). Bound: memory, each row read once for every batch that
+// uses it (the trace and Z rows feed batches 0 and 1, the CTL Zs all three)
+// and B * 2 * size words written; the products (two a row and batch, some
+// 22 instructions each with their sums) come close to it, and on the card
+// they hold it (PERF.md). So a thread owns COMBINE_COLS columns,
+// neighbouring threads on neighbouring columns (each load coalesced),
+// reads each row once, keeps 2 B unreduced 160-bit sums a column
+// (gl::acc_add, as csrc/constraints.cuh) and reduces each once; shift^j is
+// one exponentiation a thread and one product a column (as
+// gl_scale_powers).
+// The plan (the oracles' base pointers and each segment of rows with its
+// alpha offsets per batch) goes by value in the kernel's parameters, so a
+// replayed graph needs no copy; the alpha powers stay in the device bank,
+// where the challenges enter, read as uniform loads.
+//
+// K10 gl_fri_quotient: for each point i of the coset, x_i = shift * w^i,
+//   F <- F * alpha^{len_b} + (v_b(x_i) - y_b) / (x_i - z_b)  for b in order,
+//   out[part][i] = (F * x_i)[part],
+// z_b, y_b and alpha^{len_b} from the bank. 1/(x - z) =
+// (x - z_re + z_im phi) / N with the base norm N = (x - z_re)^2 - 7 z_im^2;
+// a thread takes QUOTIENT_CHUNK points, i = t + k * T for T threads (its
+// loads and stores coalesced across the warp), x stepping by w^T (and back
+// by w^-T), and inverts the norms of all its points and batches with one
+// gl::inv (Montgomery's trick, as K7: a running product over the points of
+// each point's norm product, the walk back, and the same trick over a
+// point's B norms); a zero norm enters the products as 1 and gives 0 (what
+// gfe.inv gives; the coset misses H, so no real denominator is 0). Bound:
+// the products, about 14 a batch a point and 3 (the step of x, the bump)
+// against 16 bytes read a batch and 16 written a point; each extension
+// product is two 160-bit sums of two unreduced products. A thread keeps
+// the running products of its points' norm products only (not of each
+// norm) and steps x back rather than keep it; the batches' constants (z,
+// y, alpha^len and their multiples by 7) sit in shared memory, made once a
+// block. Its instructions hold it (about 1,850 a point with the
+// exponentiations a thread, against the bound's 952 operations; PERF.md).
+//
+// The kernels call only goldilocks.cuh's gl:: helpers, and K10's first
+// thread writes its block's shared constants before any other thread
+// reads them, so with the CUDA qualifiers stubbed (shared memory as a
+// static array, the barrier as nothing) a host compiler builds this
+// namespace and runs every thread in turn (tests/test_torch_fri_kernels.py).
+#include <cuda_runtime.h>
+
+#include "goldilocks.cuh"
+
+namespace fri {
+
+constexpr int MAX_ORACLES = 4;
+constexpr int MAX_BATCHES = 4;
+constexpr int MAX_SEGMENTS = 64;
+constexpr int COMBINE_THREADS = 128;
+// columns a thread of K9: 2 B x 2 160-bit sums in registers
+constexpr int COMBINE_COLS = 2;
+constexpr int QUOTIENT_THREADS = 128;
+// points a thread of K10: the running products of their norms' products
+// in registers
+constexpr int QUOTIENT_CHUNK = 8;
+// each batch's constants in K10's shared memory: z, 7 zi, 7 zi^2, y,
+// alpha^len and 7 times its im part
+enum { ZR, ZI, ZI7, ZZ7, Y0, Y1, C0, C1, C17, CONSTANTS };
+constexpr uint64_t W = 7;
+
+// rows [first, first + count) of one oracle and, per batch, the bank offsets
+// of the first row's alpha power (re and im parts; row first + k's at + k),
+// -1 where the batch does not read them
+struct Segment {
+  int32_t oracle, first, count;
+  int32_t re[MAX_BATCHES], im[MAX_BATCHES];
+};
+
+struct CombinePlan {
+  const uint64_t* oracles[MAX_ORACLES];
+  int32_t segments;
+  Segment seg[MAX_SEGMENTS];
+};
+
+// per batch, the bank offset of its point z, its reduced opening y and
+// alpha^{len}, (re, im) each
+struct QuotientPlan {
+  int32_t point[MAX_BATCHES];
+};
+
+template <int B>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+    combine_kernel(const CombinePlan plan, const uint64_t* __restrict__ bank,
+                   uint64_t* __restrict__ out, int64_t n, int64_t size,
+                   uint64_t shift) {
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * COMBINE_THREADS *
+                         COMBINE_COLS + threadIdx.x;
+  if (j0 >= n) {  // the padding
+#pragma unroll
+    for (int u = 0; u < COMBINE_COLS; ++u) {
+      const int64_t j = j0 + u * COMBINE_THREADS;
+      if (j < size)
+#pragma unroll
+        for (int r = 0; r < 2 * B; ++r) out[r * size + j] = 0;
+    }
+    return;
+  }
+  gl::u160 acc[B][2][COMBINE_COLS];
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int u = 0; u < COMBINE_COLS; ++u) acc[b][p][u] = {0, 0, 0};
+  for (int s = 0; s < plan.segments; ++s) {
+    const Segment& sg = plan.seg[s];
+    const uint64_t* rows =
+        plan.oracles[sg.oracle] + static_cast<int64_t>(sg.first) * n;
+    for (int k = 0; k < sg.count; ++k) {
+      uint64_t c[COMBINE_COLS];
+#pragma unroll
+      for (int u = 0; u < COMBINE_COLS; ++u) {
+        const int64_t j = j0 + u * COMBINE_THREADS;
+        c[u] = j < n ? __ldg(rows + k * n + j) : 0;
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if (sg.re[b] < 0) continue;
+        const uint64_t ar = __ldg(bank + sg.re[b] + k);
+        const uint64_t ai = __ldg(bank + sg.im[b] + k);
+#pragma unroll
+        for (int u = 0; u < COMBINE_COLS; ++u) {
+          gl::acc_add(acc[b][0][u], gl::mul_wide(c[u], ar));
+          gl::acc_add(acc[b][1][u], gl::mul_wide(c[u], ai));
+        }
+      }
+    }
+  }
+  // shift^j: the thread's first column's power, then shift^THREADS a step
+  const uint64_t step = gl::pow_u64(shift, COMBINE_THREADS);
+  uint64_t w = gl::pow_u64(shift, static_cast<uint64_t>(j0));
+#pragma unroll
+  for (int u = 0; u < COMBINE_COLS; ++u) {
+    const int64_t j = j0 + u * COMBINE_THREADS;
+    if (j < size) {
+#pragma unroll
+      for (int b = 0; b < B; ++b)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          out[(2 * b + p) * size + j] =
+              j < n ? gl::mul(gl::reduce160_lazy(acc[b][p][u]), w) : 0;
+    }
+    w = gl::mul(w, step);
+  }
+}
+
+template <int B>
+__global__ void __launch_bounds__(QUOTIENT_THREADS)
+    quotient_kernel(const QuotientPlan plan,
+                    const uint64_t* __restrict__ values,
+                    const uint64_t* __restrict__ bank,
+                    uint64_t* __restrict__ out, int64_t size, uint64_t shift,
+                    uint64_t omega, uint64_t omega_step,
+                    uint64_t omega_back) {
+  // each batch's constants, made once a block by its first thread
+  __shared__ uint64_t cst[B][CONSTANTS];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const uint64_t* pt = bank + plan.point[b];
+      const uint64_t zi = pt[1], zi7 = gl::mul(pt[1], W);
+      cst[b][ZR] = pt[0];
+      cst[b][ZI] = zi;
+      cst[b][ZI7] = zi7;
+      cst[b][ZZ7] = gl::mul(zi7, zi);
+      cst[b][Y0] = pt[2];
+      cst[b][Y1] = pt[3];
+      cst[b][C0] = pt[4];
+      cst[b][C1] = pt[5];
+      cst[b][C17] = gl::mul(pt[5], W);
+    }
+  }
+  __syncthreads();
+  const int64_t threads = (size + QUOTIENT_CHUNK - 1) / QUOTIENT_CHUNK;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= threads) return;
+  // pre[k] the running product of the thread's points' norm products
+  // P_k, each norm a nonzero norm (1 for a zero one or past the end)
+  uint64_t pre[QUOTIENT_CHUNK];
+  uint64_t run = 1;
+  uint64_t x = gl::mul(shift, gl::pow_u64(omega, static_cast<uint64_t>(t)));
+#pragma unroll
+  for (int k = 0; k < QUOTIENT_CHUNK; ++k) {
+    const bool live = t + k * threads < size;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const uint64_t a = gl::sub(x, cst[b][ZR]);
+      const uint64_t norm = gl::sub(gl::mul(a, a), cst[b][ZZ7]);
+      run = gl::mul(run, live && norm ? norm : 1);
+    }
+    pre[k] = run;
+    x = gl::mul(x, omega_step);
+  }
+  // inv_run = 1 / pre[k] for the k of each step below; x walks back
+  uint64_t inv_run = gl::inv(run);
+#pragma unroll
+  for (int k = QUOTIENT_CHUNK - 1; k >= 0; --k) {
+    x = gl::mul(x, omega_back);
+    const int64_t i = t + k * threads;
+    const bool live = i < size;
+    // 1 / P_k, then each norm's inverse by the same trick over the batches
+    uint64_t r = k ? gl::mul(inv_run, pre[k - 1]) : inv_run;
+    uint64_t a[B], norm[B], part[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      a[b] = gl::sub(x, cst[b][ZR]);
+      norm[b] = gl::sub(gl::mul(a[b], a[b]), cst[b][ZZ7]);
+      const uint64_t nz = live && norm[b] ? norm[b] : 1;
+      part[b] = b ? gl::mul(part[b - 1], nz) : nz;
+    }
+    inv_run = gl::mul(inv_run, part[B - 1]);
+    if (!live) continue;
+    uint64_t ninv[B];
+#pragma unroll
+    for (int b = B - 1; b > 0; --b) {
+      ninv[b] = norm[b] ? gl::mul(r, part[b - 1]) : 0;
+      r = gl::mul(r, norm[b] ? norm[b] : 1);
+    }
+    ninv[0] = norm[0] ? r : 0;
+    uint64_t f0 = 0, f1 = 0;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const uint64_t n0 =
+          gl::sub(__ldg(values + (2 * b) * size + i), cst[b][Y0]);
+      const uint64_t n1 =
+          gl::sub(__ldg(values + (2 * b + 1) * size + i), cst[b][Y1]);
+      // (n0 + n1 phi)(a + zi phi) = n0 a + 7 n1 zi + (n0 zi + n1 a) phi,
+      // then times 1 / N
+      gl::u160 s = {0, 0, 0};
+      gl::acc_add(s, gl::mul_wide(n0, a[b]));
+      gl::acc_add(s, gl::mul_wide(n1, cst[b][ZI7]));
+      const uint64_t q0 = gl::mul(gl::reduce160_lazy(s), ninv[b]);
+      s = {0, 0, 0};
+      gl::acc_add(s, gl::mul_wide(n0, cst[b][ZI]));
+      gl::acc_add(s, gl::mul_wide(n1, a[b]));
+      const uint64_t q1 = gl::mul(gl::reduce160_lazy(s), ninv[b]);
+      if (b == 0) {  // F = 0 before the first batch
+        f0 = q0;
+        f1 = q1;
+        continue;
+      }
+      // F alpha^len + q = F0 c0 + 7 F1 c1 + q0 + (F0 c1 + F1 c0 + q1) phi
+      s = {0, 0, 0};
+      gl::acc_add(s, gl::mul_wide(f0, cst[b][C0]));
+      gl::acc_add(s, gl::mul_wide(f1, cst[b][C17]));
+      gl::acc_add(s, {q0, 0});
+      const uint64_t g0 = gl::reduce160_lazy(s);
+      s = {0, 0, 0};
+      gl::acc_add(s, gl::mul_wide(f0, cst[b][C1]));
+      gl::acc_add(s, gl::mul_wide(f1, cst[b][C0]));
+      gl::acc_add(s, {q1, 0});
+      f1 = gl::reduce160_lazy(s);
+      f0 = g0;
+    }
+    out[i] = gl::mul(f0, x);
+    out[size + i] = gl::mul(f1, x);
+  }
+}
+
+inline unsigned combine_blocks(int64_t size) {
+  const int64_t per_block = COMBINE_THREADS * COMBINE_COLS;
+  return static_cast<unsigned>((size + per_block - 1) / per_block);
+}
+
+inline unsigned quotient_blocks(int64_t size) {
+  const int64_t threads = (size + QUOTIENT_CHUNK - 1) / QUOTIENT_CHUNK;
+  return static_cast<unsigned>((threads + QUOTIENT_THREADS - 1) /
+                               QUOTIENT_THREADS);
+}
+
+// a^e mod p on the host (omega^T for K10's step)
+inline uint64_t host_pow(uint64_t a, uint64_t e) {
+  unsigned __int128 r = 1, b = a;
+  for (; e; e >>= 1) {
+    if (e & 1) r = r * b % gl::P;
+    b = b * b % gl::P;
+  }
+  return static_cast<uint64_t>(r);
+}
+
+}  // namespace fri
+
+#define FRI_DISPATCH(B_, launch) \
+  switch (B_) {                  \
+    case 1: launch(1); break;    \
+    case 2: launch(2); break;    \
+    case 3: launch(3); break;    \
+    case 4: launch(4); break;    \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// plan: a host fri::CombinePlan of `batches` batches; out: (batches, 2, size)
+extern "C" int gl_fri_combine(const void* plan, int batches, const void* bank,
+                              void* out, int64_t n, int64_t size,
+                              uint64_t shift, void* stream) {
+  const auto& p = *static_cast<const fri::CombinePlan*>(plan);
+  const auto s = static_cast<cudaStream_t>(stream);
+#define FRI_COMBINE(B)                                                      \
+  fri::combine_kernel<B><<<fri::combine_blocks(size), fri::COMBINE_THREADS, \
+                           0, s>>>(p, static_cast<const uint64_t*>(bank),   \
+                                   static_cast<uint64_t*>(out), n, size,    \
+                                   shift)
+  FRI_DISPATCH(batches, FRI_COMBINE)
+#undef FRI_COMBINE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plan: a host fri::QuotientPlan; values: (batches, 2, size); out: (2, size)
+extern "C" int gl_fri_quotient(const void* plan, int batches,
+                               const void* values, const void* bank,
+                               void* out, int64_t size, uint64_t shift,
+                               uint64_t omega, void* stream) {
+  const auto& p = *static_cast<const fri::QuotientPlan*>(plan);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const uint64_t threads =
+      static_cast<uint64_t>((size + fri::QUOTIENT_CHUNK - 1) /
+                            fri::QUOTIENT_CHUNK);
+  const uint64_t step = fri::host_pow(omega, threads);
+  // omega^-T = omega^((p - 2) T): x's step back
+  const uint64_t back = fri::host_pow(fri::host_pow(omega, gl::P - 2),
+                                      threads);
+#define FRI_QUOTIENT(B)                                                    \
+  fri::quotient_kernel<B><<<fri::quotient_blocks(size),                    \
+                            fri::QUOTIENT_THREADS, 0, s>>>(                \
+      p, static_cast<const uint64_t*>(values),                             \
+      static_cast<const uint64_t*>(bank), static_cast<uint64_t*>(out), size, \
+      shift, omega, step, back)
+  FRI_DISPATCH(batches, FRI_QUOTIENT)
+#undef FRI_QUOTIENT
+  return static_cast<int>(cudaGetLastError());
+}

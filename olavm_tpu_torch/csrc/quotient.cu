@@ -8,10 +8,11 @@
 // constants live on the card (quotient_class's `cls`, a program input), so
 // they are read there.
 //
-// gl_scale_powers: out[c][i] = x[c][i] * base^i over (C, n). Bound: memory
-// (16 bytes per element); one thread per point i computes base^i once
-// (square and multiply, then a product per grid stride) and scales the C
-// columns, coalesced across threads.
+// gl_scale_powers: out[c][i] = x[c][i] * factor * base^i over (C, n) (the
+// factor 1 in a class; the FRI composition's coset iNTT folds its 1/n in).
+// Bound: memory (16 bytes per element); one thread per point i computes
+// factor * base^i once (square and multiply, then a product per grid
+// stride) and scales the C columns, coalesced across threads.
 // gl_quotient_selectors: with x_i = shift * g^i on the class's coset,
 // (3, n) columns z_last = x - g^{-1}, lagrange_first = c/n / (x - 1) and
 // lagrange_last = c g^{-1}/n / (x - g^{-1}). The inverses by batch
@@ -38,13 +39,15 @@ constexpr int SEL_THREADS = 128;
 __global__ void scale_powers_kernel(const uint64_t* __restrict__ x,
                                     uint64_t* __restrict__ out,
                                     const uint64_t* __restrict__ base_ptr,
-                                    int64_t cols, int64_t n) {
+                                    int64_t cols, int64_t n,
+                                    uint64_t factor = 1) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
   const uint64_t base = __ldg(base_ptr);
   const uint64_t step = gl::pow_u64(base, static_cast<uint64_t>(stride));
-  uint64_t w = gl::pow_u64(base, static_cast<uint64_t>(first));
+  uint64_t w =
+      gl::mul(factor, gl::pow_u64(base, static_cast<uint64_t>(first)));
   for (int64_t i = first; i < n; i += stride, w = gl::mul(w, step))
     for (int64_t c = 0; c < cols; ++c)
       out[c * n + i] = gl::mul(__ldg(x + c * n + i), w);
@@ -95,13 +98,14 @@ __global__ void selectors_kernel(const uint64_t* __restrict__ cls,
 
 }  // namespace
 
-// base: a one-element device array
+// base: a one-element device array; factor: a canonical constant
 extern "C" int gl_scale_powers(const void* x, void* out, const void* base,
-                               int64_t cols, int64_t n, void* stream) {
+                               uint64_t factor, int64_t cols, int64_t n,
+                               void* stream) {
   scale_powers_kernel<<<gl::grid_for(n, THREADS), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(out),
-      static_cast<const uint64_t*>(base), cols, n);
+      static_cast<const uint64_t*>(base), cols, n, factor);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -309,6 +309,30 @@ def powers(base, n: int, device) -> torch.Tensor:
     return out[:n]
 
 
+def powers_plain(base: torch.Tensor, n: int) -> torch.Tensor:
+    """[1, b, ..., b^{n-1}] of a 0-dim tensor b by log-doubling on the plain
+    product (powers' plain version, for the kernels' plain versions)."""
+    out = torch.ones((1,), dtype=torch.int64, device=base.device)
+    bm, length = base, 1
+    while length < n:
+        step = min(length, n - length)
+        out = torch.cat([out, mul_plain(out[:step], bm)])
+        length += step
+        if length < n:
+            bm = mul_plain(bm, bm)
+    return out[:n]
+
+
+def sum_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """Modular sum over the leading axis, as a tree of pairwise adds (few
+    torch calls: a plain version's time is their count)."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        pairs = add_plain(x[:half], x[half:2 * half])
+        x = torch.cat([pairs, x[2 * half:]]) if x.shape[0] % 2 else pairs
+    return x[0]
+
+
 def sum_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Modular sum along a dimension (log-depth pairwise halving)."""
     x = x.movedim(dim, -1)

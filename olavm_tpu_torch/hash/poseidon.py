@@ -318,16 +318,6 @@ def _sbox_plain(x):
     return gf.mul_plain(x3, x4)
 
 
-def _sum_rows_plain(x):
-    """Modular sum over the leading axis, as a tree of pairwise adds (few
-    torch calls: the plain version's time is their count)."""
-    while x.shape[0] > 1:
-        half = x.shape[0] // 2
-        pairs = gf.add_plain(x[:half], x[half:2 * half])
-        x = torch.cat([pairs, x[2 * half:]]) if x.shape[0] % 2 else pairs
-    return x[0]
-
-
 def permute_plain(state: torch.Tensor) -> torch.Tensor:
     """Width-12 Poseidon over (12, n) states with the plain field ops."""
     dev = state.device
@@ -340,14 +330,14 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
     def full_round(st, r):
         st = _sbox_plain(gf.add_plain(st, rc[r]))
         # out[row] = sum_j coef[row, j] * st[j], all rows at once
-        return _sum_rows_plain(gf.mul_plain(coef_t.transpose(0, 1), st[:, None]))
+        return gf.sum_rows_plain(gf.mul_plain(coef_t.transpose(0, 1), st[:, None]))
 
     for r in range(HALF_N_FULL_ROUNDS):
         state = full_round(state, r)
     state = gf.add_plain(state, _col(FAST_PARTIAL_FIRST_ROUND_CONSTANT, dev))
     init = _col(FAST_PARTIAL_ROUND_INITIAL_MATRIX, dev).reshape(
         WIDTH - 1, WIDTH - 1, 1)
-    rest = _sum_rows_plain(gf.mul_plain(state[1:, None], init))
+    rest = gf.sum_rows_plain(gf.mul_plain(state[1:, None], init))
     s0 = state[0]
     prc = _col(FAST_PARTIAL_ROUND_CONSTANTS, dev)
     vs = _col(FAST_PARTIAL_ROUND_VS, dev).reshape(N_PARTIAL_ROUNDS, WIDTH - 1, 1)
@@ -359,7 +349,7 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
         if i < N_PARTIAL_ROUNDS - 1:
             s0 = gf.add_plain(s0, prc[i])
         d = gf.add_plain(gf.mul_plain(s0, mds0to0),
-                         _sum_rows_plain(gf.mul_plain(rest, wh[i])))
+                         gf.sum_rows_plain(gf.mul_plain(rest, wh[i])))
         rest = gf.add_plain(gf.mul_plain(s0, vs[i]), rest)
         s0 = d
     state = torch.cat([s0[None], rest])

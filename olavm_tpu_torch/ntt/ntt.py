@@ -101,6 +101,13 @@ def intt(x: torch.Tensor) -> torch.Tensor:
     return gf.mul(y, gf.scalar(g.inv(n), x.device))
 
 
+def intt_unscaled(x: torch.Tensor) -> torch.Tensor:
+    """n * intt(x): the inverse transform without its 1/n, which the caller
+    folds into a later product."""
+    log2_strict(x.shape[-1])
+    return _transform(x, inverse=True)
+
+
 def scale_by_powers(x: torch.Tensor, base: int) -> torch.Tensor:
     """x[..., j] *= base^j (host-known base)."""
     return gf.mul(x, gf.powers(base, x.shape[-1], x.device))

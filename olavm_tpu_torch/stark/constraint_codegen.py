@@ -550,12 +550,14 @@ def prebuild(tables) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def scale_powers(x: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
-    """x[..., i] * base^i along the last axis of a (C, n) array, `base` a
-    one-element device tensor: gl_scale_powers on CUDA tensors, the plain
-    version (log-doubled powers and the plain product) on CPU tensors."""
+def scale_powers(x: torch.Tensor, base: torch.Tensor, factor: int = 1
+                 ) -> torch.Tensor:
+    """x[..., i] * factor * base^i along the last axis of a (C, n) array,
+    `base` a one-element device tensor, `factor` a host constant (static in
+    a program): gl_scale_powers on CUDA tensors, the plain version
+    (log-doubled powers and the plain product) on CPU tensors."""
     if x.device.type != "cuda":
-        return scale_powers_plain(x, base)
+        return scale_powers_plain(x, base, factor)
     x, base = x.contiguous(), base.reshape(1).contiguous()
     kernels.require_cuda_int64(x, base)
     if x.dim() != 2:
@@ -564,28 +566,16 @@ def scale_powers(x: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     kernels.check(kernels.lib("quotient").gl_scale_powers(
-        x.data_ptr(), out.data_ptr(), base.data_ptr(), x.shape[0], x.shape[1],
-        kernels.stream_ptr(x)), "scale_powers")
+        x.data_ptr(), out.data_ptr(), base.data_ptr(), factor % g.P,
+        x.shape[0], x.shape[1], kernels.stream_ptr(x)), "scale_powers")
     kernels.count("scale_powers")
     return out
 
 
-def scale_powers_plain(x: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
-    return gf.mul_plain(x, _powers_plain(base.reshape(()), x.shape[-1]))
-
-
-def _powers_plain(base: torch.Tensor, n: int) -> torch.Tensor:
-    """[1, b, ..., b^{n-1}] of a 0-dim tensor b by log-doubling (gf.powers
-    with the plain product)."""
-    out = torch.ones((1,), dtype=torch.int64, device=base.device)
-    bm, length = base, 1
-    while length < n:
-        step = min(length, n - length)
-        out = torch.cat([out, gf.mul_plain(out[:step], bm)])
-        length += step
-        if length < n:
-            bm = gf.mul_plain(bm, bm)
-    return out[:n]
+def scale_powers_plain(x: torch.Tensor, base: torch.Tensor, factor: int = 1
+                       ) -> torch.Tensor:
+    pows = gf.powers_plain(base.reshape(()), x.shape[-1])
+    return gf.mul_plain(x, gf.mul_plain(pows, gf.scalar(factor, x.device)))
 
 
 def _inv_plain(x: torch.Tensor) -> torch.Tensor:
@@ -624,7 +614,8 @@ def selectors_plain(cls: torch.Tensor, degree_bits: int) -> torch.Tensor:
     # L_0(x) = (x^n-1)/(n (x-1)); L_{n-1}(x) = (x^n-1) g^{-1}/(n (x-g^{-1}))
     device = cls.device
     gen = g.primitive_root_of_unity(degree_bits)
-    xs = gf.mul_plain(_powers_plain(gf.scalar(gen, device), 1 << degree_bits),
+    xs = gf.mul_plain(gf.powers_plain(gf.scalar(gen, device),
+                                      1 << degree_bits),
                       cls[0])
     lagrange_first = gf.mul_plain(
         cls[1], _inv_plain(gf.sub_plain(xs, gf.scalar(1, device))))

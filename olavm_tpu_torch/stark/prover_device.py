@@ -15,15 +15,17 @@ runs on the given torch device.
               residue class of the quotient coset, the class's values one
               coset FFT of the coefficients
   openings  = power-table inner products at zeta and g*zeta (K5)
-  FRI       = composition poly formed on the coefficients, one coset LDE,
-              fold, re-FFT, extension-leaf trees, the Poseidon PoW grind
+  FRI       = composition poly formed on the coefficients (K9), one
+              batched coset LDE, the quotient over the coset (K10), fold,
+              re-FFT, extension-leaf trees, the Poseidon PoW grind
               (K2), query leaves evaluated at their points (K5)
 
 On a CUDA device the quotient's constraints launch K6 (and its coset
-scaling and selectors, csrc/quotient.cu), the remaining products K3, the
-transforms K1, the grind K2 and the evaluations K5; the Merkle hashing
-launches the blake3 kernels (K4 and its absorb) or the Poseidon leaf,
-absorb and level kernels, as config.merkle_hasher says.
+scaling and selectors, csrc/quotient.cu), the FRI composition K9 and K10
+(csrc/fri.cu), the remaining products K3, the transforms K1, the grind K2
+and the evaluations K5; the Merkle hashing launches the blake3 kernels (K4
+and its absorb) or the Poseidon leaf, absorb and level kernels, as
+config.merkle_hasher says.
 
 The Z polys, each quotient class, the openings' power tables, the FRI
 composition and each fold and re-FFT are programs (utils/jitcache.py): on
@@ -86,6 +88,7 @@ from .fri import (
 )
 from . import constraint_codegen as cg
 from . import constraint_tape as ct
+from . import fri_kernels as fk
 from .oracle_device import (
     DevicePolynomialBatch,
     build_tree_device,
@@ -569,9 +572,10 @@ def prove_openings_device(instance, openings_batches, oracles, challenger,
     polynomials have n of them) and takes one coset LDE of its re and im
     parts: by linearity the values the sum over LDE rows would give, at 1/8
     of the arithmetic and with no LDE kept. One coset iNTT gives the
-    coefficients to fold. The whole composition is one program (olavm_tpu's
-    "horner_lde", "friquot", "frimulx" and "fri_ifft" programs,
-    olavm_tpu/stark/prover_device.py:722-830), keyed by the batches'
+    coefficients to fold. The whole composition (K9, K1, K10, K1 inverse
+    and the coset scaling: fri_composition) is one program (olavm_tpu's
+    "horner_lde", "fri_xs", "friquot", "frimulx" and "fri_ifft" programs,
+    olavm_tpu/stark/prover_device.py:733-853), keyed by the batches'
     structure; alpha's powers, the points and the opened values, all
     derived from challenges, are its bank (composition_bank)."""
     device = oracles[0].coeffs.device
@@ -622,7 +626,29 @@ def composition_bank(instance, alpha, reduced) -> tuple[tuple, list[int]]:
 def fri_composition(*inputs, plan, rate_bits: int):
     """The composition's values and coefficients over the LDE coset, as
     (values re, values im, coefficients re, coefficients im); `inputs` are
-    the oracles' (C, n) coefficients and the bank (composition_bank)."""
+    the oracles' (C, n) coefficients and the bank (composition_bank). K9
+    writes every batch's alpha-combination, times the coset's shift^j, as
+    the input of one batched K1 forward (the batches' coset LDEs), K10 forms
+    F * x over the coset from them, and K1 inverse with gl_scale_powers
+    (shift^-j / size) gives the coefficients (stark/fri_kernels.py): no K3,
+    add, sub or K7 launch."""
+    *oracle_coeffs, bank = inputs
+    lde = dntt.ntt(fk.fri_combine(oracle_coeffs, bank, plan, rate_bits))
+    values = fk.fri_quotient(lde, bank, plan)
+    del lde
+    size = values.shape[-1]
+    c = cg.scale_powers(dntt.intt_unscaled(values),
+                        gf.scalar(g.inv(fk.SHIFT), bank.device),
+                        g.inv(size))
+    return values[0], values[1], c[0], c[1]
+
+
+def fri_composition_ops(*inputs, plan, rate_bits: int):
+    """fri_composition op by op (the chain that K9 and K10 replaced): each
+    run's rows times their alpha powers and summed by halving, the runs
+    summed, one coset LDE a batch, the quotient by sub, gfe.inv and gfe.mul
+    against a table of the coset's points, the degree bump, the coset iNTT.
+    The yardstick that the kernels and their plain versions are held to."""
     *oracle_coeffs, bank = inputs
     device = bank.device
     size = oracle_coeffs[0].shape[1] << rate_bits

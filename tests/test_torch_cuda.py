@@ -261,10 +261,13 @@ def test_toy_proof_through_kernels_equals_host(dev):
                                     device=dev)
     assert tser(port) == serialize_all_proof(host)
     # ToySystem's commits have at most 4 columns (leaves that are their own
-    # digests), so the streamed absorb runs only in the wider tests below
+    # digests), so the streamed absorb runs only in the wider tests below;
+    # K7's extension entry left the prove with K10, which inverts its norms
     blake3 = {k: v for k, v in kernels.LAUNCHES.items()
-              if not k.startswith("poseidon_") and k != "blake3_absorb"}
+              if not k.startswith("poseidon_")
+              and k not in ("blake3_absorb", "gf_ext_inv")}
     assert all(v > 0 for v in blake3.values()), kernels.LAUNCHES
+    assert kernels.LAUNCHES["gf_ext_inv"] == 0
 
 
 def test_toy_poseidon_proof_through_kernels_equals_host(dev):
@@ -723,3 +726,58 @@ def test_prefix_prod_kernel_in_a_graph_replays(dev):
         static.copy_(z)
         graph.replay()
         assert torch.equal(out, gf.prefix_prod_plain(z, exclusive=True))
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10, the FRI composition (csrc/fri.cu)
+# ---------------------------------------------------------------------------
+
+
+def _fri_check(coeffs, bank, plan, rate_bits):
+    """K9 and K10 against their plain versions on these inputs, each one
+    launch; the composition against fri_composition_ops, with no K3, add,
+    sub or K7 launch."""
+    from olavm_tpu_torch.stark import fri_kernels as fk
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    kernels.reset_launches()
+    combined = fk.fri_combine(coeffs, bank, plan, rate_bits)
+    assert torch.equal(combined,
+                       fk.fri_combine_plain(coeffs, bank, plan, rate_bits))
+    lde = tntt.ntt(combined)
+    assert torch.equal(fk.fri_quotient(lde, bank, plan),
+                       fk.fri_quotient_plain(lde, bank, plan))
+    assert (kernels.LAUNCHES["fri_combine"],
+            kernels.LAUNCHES["fri_quotient"]) == (1, 1)
+    # the first call builds the transforms' twiddles (with K3), as a
+    # program's warm-up does
+    tpd.fri_composition(*coeffs, bank, plan=plan, rate_bits=rate_bits)
+    kernels.reset_launches()
+    got = tpd.fri_composition(*coeffs, bank, plan=plan, rate_bits=rate_bits)
+    assert not any(kernels.LAUNCHES[k] for k in ("gf_mul", "gf_add",
+                                                 "gf_sub", "gf_ext_inv"))
+    want = tpd.fri_composition_ops(*coeffs, bank, plan=plan,
+                                   rate_bits=rate_bits)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("log_n", [1, 8, 12])
+@pytest.mark.parametrize("edge", [False, True])
+def test_fri_kernels_match_plain(dev, log_n, edge):
+    """Runs of 16 and 17 rows, three batches as the prove plans them; with
+    `edge`, EDGE_VALUES throughout and a zero norm."""
+    import chip_smoke
+
+    rng = np.random.default_rng(log_n + 10 * edge)
+    coeffs, bank, plan = chip_smoke.fri_case((17, 16, 2), 1, 1 << log_n, rng,
+                                             dev, edge)
+    _fri_check(coeffs, bank, plan, chip_smoke.FRI_RATE_BITS)
+
+
+def test_fri_kernels_on_a_toy_proves_composition(dev):
+    from olavm_tpu_torch.utils import jitcache
+
+    key, _, inputs = _toy_programs(dev)["fricomp"]
+    *coeffs, bank = inputs
+    _fri_check(coeffs, bank, key[3], key[2])
+    jitcache.clear()

@@ -1,0 +1,325 @@
+"""K9 (fri_combine) and K10 (fri_quotient), the FRI composition's two passes
+(csrc/fri.cu, stark/fri_kernels.py), on the CPU, exact throughout
+(tolerance 0: field arithmetic has one answer):
+
+- the composition that the port runs (fri_composition: the plain K9, K1,
+  the plain K10, K1 inverse and the coset scaling) equals the op-by-op
+  chain it replaced (fri_composition_ops) and olavm_tpu's
+  prove_openings_device, on an instance of fri_instance_for_stark's shape:
+  three oracles, batch 0 at zeta over all three, batch 1 at g zeta over the
+  trace and Z rows (rows shared by batches), batch 2 at the base point
+  g^-1 over the CTL Zs only;
+- in the port alone: runs of 1, 16 and 17 rows (a batch cut into runs of
+  at most 16), n from 2 to 2^10, edge values and a zero norm;
+- K9's segment table reads every (batch, row) of a plan once, with its
+  alpha powers, a row listed twice by one batch included;
+- csrc/fri.cu built by g++ (the CUDA qualifiers stubbed, every thread of a
+  launch run on the host) equals the plain versions at chip_smoke's
+  EDGE_VALUES, at sizes that are not a multiple of a thread's columns or
+  points, and with a zero norm.
+On the card, tests/test_torch_cuda.py holds both kernels to their plain
+versions and chip_smoke.py does so at the main path's shapes.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from olavm_tpu_torch import kernels
+from olavm_tpu_torch.field import gf
+from olavm_tpu_torch.field import goldilocks as g
+from olavm_tpu_torch.stark import fri_kernels as fk
+from olavm_tpu_torch.stark import prover_device as tpd
+from test_torch_inv_scan import _composition
+import torch_threads  # noqa: F401  (torch's share of the cores)
+
+P = gf.P
+RATE_BITS = chip_smoke.FRI_RATE_BITS
+
+
+def _constants() -> dict:
+    text = (kernels.CSRC / "fri.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+K9K10 = _constants()
+
+
+def test_wrapper_limits_are_the_sources():
+    assert (fk.MAX_ORACLES, fk.MAX_BATCHES, fk.MAX_SEGMENTS) == (
+        K9K10["MAX_ORACLES"], K9K10["MAX_BATCHES"], K9K10["MAX_SEGMENTS"])
+    assert "fri" in kernels.SOURCES
+    assert {"fri_combine", "fri_quotient"} <= set(kernels.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# the composition against the chain it replaced and olavm_tpu's
+# ---------------------------------------------------------------------------
+
+
+def _both(coeffs, bank, plan):
+    got = tpd.fri_composition(*coeffs, bank, plan=plan, rate_bits=RATE_BITS)
+    want = tpd.fri_composition_ops(*coeffs, bank, plan=plan,
+                                   rate_bits=RATE_BITS)
+    return got, want
+
+
+def test_three_batches_equal_olavm_tpu(monkeypatch):
+    rng = np.random.default_rng(15)
+    n = 8
+    # runs of 1 and 2 rows: olavm_tpu traces a program for each run length
+    widths, num_perm = (2, 2, 1), 1
+    coeffs = [rng.integers(0, P, (w, n), dtype=np.uint64) for w in widths]
+    trace = [(0, i) for i in range(widths[0])]
+    zs = [(1, i) for i in range(widths[1])]
+    points = [rng.integers(0, P, 2, dtype=np.uint64) for _ in range(2)]
+    points.append(np.asarray([g.inv(g.primitive_root_of_unity(3)), 0],
+                             dtype=np.uint64))
+    polys = [trace + zs + [(2, 0)], trace + zs,
+             [(1, i) for i in range(num_perm, widths[1])]]
+    openings = [[tuple(int(v) for v in rng.integers(0, P, 2, dtype=np.uint64))
+                 for _ in q] for q in polys]
+    got = _composition(monkeypatch, "olavm_tpu_torch", coeffs, points, polys,
+                       openings)
+    want = _composition(monkeypatch, "olavm_tpu", coeffs, points, polys,
+                        openings)
+    for g_, w in zip(got, want):
+        np.testing.assert_array_equal(g_, w)
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17])
+@pytest.mark.parametrize("log_n", [1, 3, 6, 10])
+def test_composition_equals_the_op_by_op_chain(rows, log_n):
+    rng = np.random.default_rng(rows * 100 + log_n)
+    n = 1 << log_n
+    # the trace and Z batches cut into runs of at most 16 rows, the CTL Zs
+    # (rows 1 on) cut elsewhere
+    coeffs, bank, plan = chip_smoke.fri_case((rows, rows + 1, 2), 1, n, rng,
+                                             "cpu")
+    got, want = _both(coeffs, bank, plan)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("log_n", [1, 4])
+def test_composition_on_edge_values_and_a_zero_norm(log_n):
+    rng = np.random.default_rng(log_n)
+    coeffs, bank, plan = chip_smoke.fri_case((17, 3, 2), 1, 1 << log_n, rng,
+                                             "cpu", edge=True)
+    got, want = _both(coeffs, bank, plan)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.FRI_SHAPES))
+def test_segments_read_each_batch_row_once(name):
+    """The segment table of each shape chip_smoke checks, and of plans with
+    runs that overlap across batches and a row listed twice: each (batch,
+    listing of a row) once, with the bank offsets of its alpha powers."""
+    widths, num_perm, _ = chip_smoke.FRI_SHAPES[name]
+    _, _, plan = chip_smoke.fri_case(widths, num_perm, 2,
+                                     np.random.default_rng(0), "cpu")
+    dup = (((0, 0, 3, 0), (0, 1, 2, 6)), 10), (((0, 2, 5, 16),), 26)
+    for p in (plan, dup):
+        want = sorted((b, oi, p0 + r, roff + r, roff + k + r)
+                      for b, (runs, _) in enumerate(p)
+                      for oi, p0, k, roff in runs for r in range(k))
+        got = sorted((b, oi, first + r, re[b] + r, im[b] + r)
+                     for oi, first, count, re, im in fk.segments(p)
+                     for b in range(len(p)) if re[b] >= 0
+                     for r in range(count))
+        assert got == want
+        assert len(fk.segments(p)) <= fk.MAX_SEGMENTS
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    rng = np.random.default_rng(3)
+    coeffs, bank, plan = chip_smoke.fri_case((3, 2, 1), 0, 16, rng, "cpu")
+    kernels.reset_launches()
+    combined = fk.fri_combine(coeffs, bank, plan, RATE_BITS)
+    assert torch.equal(combined, fk.fri_combine_plain(coeffs, bank, plan,
+                                                      RATE_BITS))
+    assert torch.equal(fk.fri_quotient(combined, bank, plan),
+                       fk.fri_quotient_plain(combined, bank, plan))
+    assert kernels.LAUNCHES["fri_combine"] == kernels.LAUNCHES[
+        "fri_quotient"] == 0
+
+
+def test_combine_plain_against_python_ints():
+    rng = np.random.default_rng(4)
+    n = 4
+    coeffs, bank, plan = chip_smoke.fri_case((2, 3, 1), 1, n, rng, "cpu")
+    got = gf.to_u64(fk.fri_combine_plain(coeffs, bank, plan, 1))
+    c = [gf.to_u64(x) for x in coeffs]
+    bk = [int(v) for v in gf.to_u64(bank)]
+    for b, (runs, _) in enumerate(plan):
+        for part in range(2):
+            for j in range(2 * n):
+                want = 0
+                if j < n:
+                    for oi, p0, k, roff in runs:
+                        for r in range(k):
+                            want += (bk[roff + part * k + r]
+                                     * int(c[oi][p0 + r, j]))
+                    want = want * pow(fk.SHIFT, j, P) % P
+                assert int(got[b, part, j]) == want
+
+
+# ---------------------------------------------------------------------------
+# csrc/fri.cu built by g++, every thread run on the host
+# ---------------------------------------------------------------------------
+
+FRI_STUB = """
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __syncthreads()
+struct HostDim { unsigned x; };
+static HostDim blockIdx, blockDim, threadIdx, gridDim;
+template <class T> static inline T __ldg(const T* p) { return *p; }
+"""
+
+# every (block, thread) of a launch of csrc/fri.cu's kernels, in turn
+FRI_HOST_GRID = """
+static void grid(unsigned blocks, unsigned threads, void (*run)()) {
+  gridDim.x = blocks;
+  blockDim.x = threads;
+  for (blockIdx.x = 0; blockIdx.x < blocks; ++blockIdx.x)
+    for (threadIdx.x = 0; threadIdx.x < threads; ++threadIdx.x) run();
+}
+static const fri::CombinePlan* g_cplan;
+static const fri::QuotientPlan* g_qplan;
+static const uint64_t *g_bank, *g_values;
+static uint64_t* g_out;
+static int64_t g_n, g_size;
+static uint64_t g_shift, g_omega, g_step, g_back;
+template <int B> static void combine() {
+  fri::combine_kernel<B>(*g_cplan, g_bank, g_out, g_n, g_size, g_shift);
+}
+template <int B> static void quotient() {
+  fri::quotient_kernel<B>(*g_qplan, g_values, g_bank, g_out, g_size, g_shift,
+                          g_omega, g_step, g_back);
+}
+extern "C" void host_fri_combine(const void* plan, int batches,
+                                 const uint64_t* bank, uint64_t* out,
+                                 int64_t n, int64_t size, uint64_t shift) {
+  g_cplan = static_cast<const fri::CombinePlan*>(plan);
+  g_bank = bank; g_out = out; g_n = n; g_size = size; g_shift = shift;
+  void (*run[])() = {combine<1>, combine<2>, combine<3>, combine<4>};
+  grid(fri::combine_blocks(size), fri::COMBINE_THREADS, run[batches - 1]);
+}
+extern "C" void host_fri_quotient(const void* plan, int batches,
+                                  const uint64_t* values,
+                                  const uint64_t* bank, uint64_t* out,
+                                  int64_t size, uint64_t shift,
+                                  uint64_t omega) {
+  g_qplan = static_cast<const fri::QuotientPlan*>(plan);
+  g_values = values; g_bank = bank; g_out = out; g_size = size;
+  g_shift = shift; g_omega = omega;
+  const uint64_t threads = static_cast<uint64_t>(
+      (size + fri::QUOTIENT_CHUNK - 1) / fri::QUOTIENT_CHUNK);
+  g_step = fri::host_pow(omega, threads);
+  g_back = fri::host_pow(fri::host_pow(omega, gl::P - 2), threads);
+  void (*run[])() = {quotient<1>, quotient<2>, quotient<3>, quotient<4>};
+  grid(fri::quotient_blocks(size), fri::QUOTIENT_THREADS, run[batches - 1]);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def fri_host(tmp_path_factory):
+    """csrc/fri.cu's kernels built by g++ (the CUDA qualifiers and index
+    registers stubbed, goldilocks.cuh's host twins) with a loop that runs
+    every thread of a launch on the host."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    text = (kernels.CSRC / "fri.cu").read_text()
+    start = text.index('#include "goldilocks.cuh"')
+    end = text.index("}  // namespace fri") + len("}  // namespace fri")
+    d = tmp_path_factory.mktemp("fri_host")
+    (d / "stub.h").write_text(FRI_STUB)
+    (d / "fri_host.cpp").write_text(text[start:end] + FRI_HOST_GRID)
+    so = d / "libfrihost.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", "-I", str(kernels.CSRC),
+                    "-include", str(d / "stub.h"), str(d / "fri_host.cpp"),
+                    "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
+    lib.host_fri_combine.argtypes = [vp, ctypes.c_int, vp, vp, i64, i64, u64]
+    lib.host_fri_quotient.argtypes = [vp, ctypes.c_int, vp, vp, vp, i64, u64,
+                                      u64]
+    lib.host_fri_combine.restype = lib.host_fri_quotient.restype = None
+    return lib
+
+
+def _combine_host(lib, coeffs, bank, plan, rate_bits):
+    n = coeffs[0].shape[1]
+    size = n << rate_bits
+    out = torch.full((len(plan), 2, size), -1, dtype=torch.int64)
+    p = fk.combine_params(coeffs, plan)
+    lib.host_fri_combine(ctypes.addressof(p), len(plan), bank.data_ptr(),
+                         out.data_ptr(), n, size, fk.SHIFT)
+    return out
+
+
+# n not a multiple of a thread's columns (COMBINE_THREADS * COMBINE_COLS =
+# 256), nor of a block's, with and without padding
+@pytest.mark.parametrize("n,rate_bits", [(2, 3), (3, 0), (300, 1), (257, 2),
+                                         (1024, 3)])
+def test_k9_built_by_gxx_equals_plain(fri_host, n, rate_bits):
+    rng = np.random.default_rng(n)
+    for edge in (False, True):
+        coeffs, bank, plan = chip_smoke.fri_case((17, 5, 2), 2, n, rng,
+                                                 "cpu", edge)
+        got = _combine_host(fri_host, coeffs, bank, plan, rate_bits)
+        assert torch.equal(got, fk.fri_combine_plain(coeffs, bank, plan,
+                                                     rate_bits)), edge
+
+
+def test_k9_built_by_gxx_on_one_to_four_batches(fri_host):
+    rng = np.random.default_rng(9)
+    n = 40
+    coeffs = [gf.from_u64(rng.integers(0, P, (6, n), dtype=np.uint64), "cpu")]
+    bank = gf.from_u64(chip_smoke.edge_values(rng, 64), "cpu")
+    runs = (((0, 0, 6, 0),), 12), (((0, 2, 3, 20),), 26), \
+        (((0, 5, 1, 32), (0, 0, 2, 34)), 38), (((0, 1, 4, 44),), 52)
+    for b in range(1, 5):
+        plan = runs[:b]
+        assert torch.equal(_combine_host(fri_host, coeffs, bank, plan, 2),
+                           fk.fri_combine_plain(coeffs, bank, plan, 2))
+
+
+# sizes not a multiple of a thread's points (QUOTIENT_CHUNK = 8) or of a
+# block's, any omega
+@pytest.mark.parametrize("size", [1, 5, 12, 17, 1000, (1 << 12) + 3])
+@pytest.mark.parametrize("batches", [1, 3, 4])
+def test_k10_built_by_gxx_equals_plain(fri_host, size, batches):
+    rng = np.random.default_rng(size * 10 + batches)
+    shift, omega = (int(v) for v in rng.integers(1, P, 2, dtype=np.uint64))
+    values = gf.from_u64(chip_smoke.edge_values(rng, (batches, 2, size)),
+                         "cpu")
+    bank = chip_smoke.edge_values(rng, 6 * batches + 3)
+    points = [3 + 6 * b for b in range(batches)]
+    # batch 0's point is a point of the coset: a zero norm there
+    x = shift * pow(omega, int(rng.integers(size)), P) % P
+    bank[points[0]:points[0] + 2] = (x, 0)
+    bank = gf.from_u64(bank, "cpu")
+    p = fk._QuotientPlan()
+    p.point[:batches] = points
+    got = torch.full((2, size), -1, dtype=torch.int64)
+    fri_host.host_fri_quotient(ctypes.addressof(p), batches,
+                               values.contiguous().data_ptr(), bank.data_ptr(),
+                               got.data_ptr(), size, shift, omega)
+    assert torch.equal(got, fk.quotient_plain(values, bank, points, shift,
+                                              omega))
