@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the NTT (K1), Poseidon, absorb, evaluation (K5), inversion (K7),
-scan (K8) and FRI composition (K9, K10) kernels of this checkout at the main
-path's shapes, and count the SASS instructions of their kernels.
+scan (K8), FRI composition (K9, K10), CTL row combination (K11) and FRI
+fold (K12) kernels of this checkout at the main path's shapes, and count
+the SASS instructions of their kernels.
 
     python3 chip_kernel_times.py                    # all; one CUDA card, nvcc
     python3 chip_kernel_times.py --kernel poseidon  # libposeidon's kernels only
@@ -11,6 +12,8 @@ path's shapes, and count the SASS instructions of their kernels.
     python3 chip_kernel_times.py --kernel inv       # K7, inversion
     python3 chip_kernel_times.py --kernel scan      # K8, the scan
     python3 chip_kernel_times.py --kernel fri       # K9, K10: FRI composition
+    python3 chip_kernel_times.py --kernel ctl       # K11: CTL row combination
+    python3 chip_kernel_times.py --kernel fold      # K12: the FRI fold
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
 after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
@@ -53,6 +56,13 @@ its share, each checked against its plain version; and per shape the whole
 composition (fri_composition: K9, K1, K10, K1 inverse, the coset scaling)
 in device ms beside the op-by-op chain it replaced (fri_composition_ops),
 with the launches and the peak bytes allocated of one call of each.
+For `ctl` and `fold`, "rows" holds K11 on the widest view of a table at
+its rows (chip_smoke.widest_view, ctl_case) and K12 at (log2 of the
+coefficients, arity) (chip_smoke.fold_case): CUDA-event ms, device ms, the
+bound (chip_smoke.ctl_combine_bound, fri_fold_bound) and its share,
+whether it equals its plain version, and the device ms and launches of the
+op-by-op chain each replaced on the same inputs (ctl_kernels.
+ctl_combine_ops; fri_kernels.fri_fold_ops).
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -104,13 +114,25 @@ SHAPES = {
     "fri": {"N=94000 CpuStark": ((94, 78, 12), 0, 20),
             "K=512 PoseidonStark": ((134, 6, 12), 0, 20),
             "N=376000 CpuStark": ((94, 78, 12), 0, 22)},
+    # K11: (OlaStark table, log2 rows) of the widest view timed: CpuStark at
+    # N=94000 and N=376000, ProgramStark at N=94000, PoseidonStark at N=94000
+    # and K=512, MemoryStark at N=94000
+    "ctl": {"CpuStark 2^20": (0, 20), "CpuStark 2^22": (0, 22),
+            "ProgramStark 2^21": (10, 21), "PoseidonStark 2^10": (5, 10),
+            "PoseidonStark 2^20": (5, 20), "MemoryStark 2^18": (1, 18)},
+    # K12: (log2 coefficients, arity): the folds of N=94000's FRI proofs
+    # (ProgramStark's 2^24 LDE, CpuStark's 2^23, ...) and the arities the
+    # kernel takes
+    "fold": ((24, 16), (23, 16), (22, 16), (20, 16), (16, 16), (12, 16),
+             (24, 2), (24, 4), (24, 8)),
 }
 # the csrc sources that hold each choice's kernels
 LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
         "absorb": ("blake3", "poseidon"), "eval": ("eval",),
         "quotient": ("gf_mul", "ntt", "quotient"),
         "inv": ("gf_inv", "gf_mul"), "scan": ("scan", "gf_mul"),
-        "fri": ("fri", "ntt", "quotient", "gf_mul", "gf_inv")}
+        "fri": ("fri", "ntt", "quotient", "gf_mul", "gf_inv"),
+        "ctl": ("ctl", "gf_mul"), "fold": ("fri", "gf_mul")}
 # libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
 # the FRI trees' arity-16 extension leaves, one permutation per leaf) and
 # tree levels of n digests
@@ -265,6 +287,8 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return time_inv_scan(kernel, gen, cuda_ms)
     if kernel == "fri":
         return time_fri(cuda_ms)
+    if kernel in ("ctl", "fold"):
+        return time_ctl_fold(kernel, cuda_ms)
     if kernel == "ntt":
         from olavm_tpu_torch.ntt import ntt as dntt
 
@@ -432,6 +456,65 @@ def time_fri(cuda_ms) -> dict:
         del coeffs, bank
         torch.cuda.empty_cache()
     return {"rows": rows, "composition": comp}
+
+
+def time_ctl_fold(kernel: str, cuda_ms) -> dict:
+    """{"rows": {shape: {"ms", "device_ms", "bound_ms", "bound_by", "share",
+    "plain_equal", "launches", "chain_device_ms", "chain_launches"}}} for
+    K11 or K12 at SHAPES[kernel], the chain each replaced beside it."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+    from olavm_tpu_torch.stark import fri_kernels as fk
+
+    rng = np.random.default_rng(0)
+
+    def launches(call):
+        kernels.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    cases = []  # (shape, kernel call, plain call, chain call, bound)
+    if kernel == "ctl":
+        for shape, (table, log_n) in SHAPES["ctl"].items():
+            view = chip_smoke.widest_view(table)
+            trace, bank, on = chip_smoke.ctl_case(view, 1 << log_n, rng,
+                                                  "cuda")
+            args = (trace, view.columns, view.filter_column, bank)
+            cases.append((
+                f"{shape}, {len(view.columns)} columns",
+                lambda a=args: ck.ctl_combine(*a),
+                lambda a=args: ck.ctl_combine_plain(*a),
+                lambda a=args: ck.ctl_combine_ops(*a),
+                chip_smoke.ctl_combine_bound(view, 1 << log_n, on)))
+    else:
+        for log_m, arity in SHAPES["fold"]:
+            args = chip_smoke.fold_case(log_m, arity, rng, "cuda")
+            cases.append((
+                f"2^{log_m} arity {arity}",
+                lambda a=args: fk.fri_fold(*a),
+                lambda a=args: fk.fri_fold_plain(*a),
+                lambda a=args: fk.fri_fold_ops(*a),
+                chip_smoke.fri_fold_bound(1 << log_m, arity)))
+    rows = {}
+    for shape, call, plain, chain, least in cases:
+        dev_ms = chip_smoke.device_ms(call, 20)
+        rows[shape] = {
+            "ms": cuda_ms(call, 20), "device_ms": dev_ms,
+            "bound_ms": least["bound_ms"], "bound_by": least["bound_by"],
+            "share": least["bound_ms"] / dev_ms,
+            "plain_equal": torch.equal(call(), plain()),
+            "launches": launches(call),
+            "chain_device_ms": chip_smoke.device_ms(chain, 3),
+            "chain_launches": launches(chain)}
+        print(json.dumps({kernel: shape, **rows[shape]}), flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    return {"rows": rows}
 
 
 def time_absorb(gen, cuda_ms) -> dict:

@@ -24,7 +24,9 @@ and those that graph replays ran, those that the quotient's programs ran
 (and one replay of each by kernel), and the peak device memory, allocated and
 reserved (the graphs' shared pool is reserved memory that allocations
 outside the graphs cannot use, so the reserved peak is given beside the
-allocated one), with the programs' buffers and pool. Prints one JSON object
+allocated one), with the programs' buffers and pool, the allocator's
+cudaMalloc calls (`device_allocs`) and the host seconds of the prove's
+top-level scopes (`scopes_seconds`, the tables' summed). Prints one JSON object
 as the last line and writes the same, with the kernel tables, to
 chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon).
 
@@ -34,8 +36,8 @@ tag (`ctlz`, `permz`, `qclass`, `extpows`, `fricomp`, `frifold`,
 of the runtime call that launched it (a kernel launch, or the graph launch
 of a replay), to the range around that call, or to "host" (issued by the
 host outside any program). Per tag it gives, by kernel class (K3, add,
-sub, cat, fill, K7, K8, K9, K10, the rest), the launches and device
-milliseconds.
+sub, cat, fill, K7, K8, K9, K10, K11, K12, the rest), the launches and
+device milliseconds.
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ KERNEL_CLASSES = (
     ("prefix_prod", re.compile(r"scan_kernel")),
     ("fri_combine", re.compile(r"fri::combine_kernel")),
     ("fri_quotient", re.compile(r"fri::quotient_kernel")),
+    ("ctl_combine", re.compile(r"ctl::combine_kernel")),
+    ("fri_fold", re.compile(r"fri::fold_kernel")),
 )
 PROGRAM_RANGE = "program:"
 
@@ -143,6 +147,7 @@ def main() -> int:
     from olavm_tpu_torch.stark.prover_device import prove_with_traces_device
     from olavm_tpu_torch.stark.serialization import serialize_all_proof
     from olavm_tpu_torch.utils import jitcache
+    from olavm_tpu_torch.utils.timing import TimingTree
 
     def quotient_kernels() -> dict:
         out = {}
@@ -171,12 +176,20 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        allocs = torch.cuda.memory_stats(device).get("num_device_alloc", 0)
+        timing = TimingTree()
         t0 = time.perf_counter()
         proof = prove_with_traces_device(ola, config, traces,
                                          public_values=public_values,
-                                         device=device, programs=programs)
+                                         timing=timing, device=device,
+                                         programs=programs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        scopes: dict = {}
+        for depth, name, secs in timing.records:
+            if depth == 1:
+                key = re.sub(r"\d+", "#", name)
+                scopes[key] = scopes.get(key, 0.0) + secs
         host = sum(kernels.HOST_LAUNCHES.values())
         by_tag = chip_smoke.program_counts(before, jitcache.stats())["by_tag"]
         run = {
@@ -191,6 +204,12 @@ def main() -> int:
             "quotient_kernels": quotient_kernels(),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            # the allocator's cudaMalloc calls during the prove, and the
+            # host seconds of each of the prove's top-level scopes (tables'
+            # scopes summed)
+            "device_allocs": torch.cuda.memory_stats(device).get(
+                "num_device_alloc", 0) - allocs,
+            "scopes_seconds": scopes,
             "program_memory_bytes": chip_smoke.program_memory(),
             "proof_sha256": hashlib.sha256(
                 serialize_all_proof(proof)).hexdigest()}
@@ -277,6 +296,8 @@ def main() -> int:
             "replayed_launches": [r["replayed_launches"] for r in warm],
             "peak_memory_bytes": [r["peak_memory_bytes"] for r in warm],
             "peak_reserved_bytes": [r["peak_reserved_bytes"] for r in warm],
+            "device_allocs": [r["device_allocs"] for r in warm],
+            "scopes_seconds": [r["scopes_seconds"] for r in warm],
         }
     result["program_split"] = split
     result["cold_eager_peak_memory_bytes"] = runs[0]["peak_memory_bytes"]

@@ -35,7 +35,18 @@ without printing a result:
    at the composition's shapes of CpuStark at N=94000 and PoseidonStark at
    K=512 (n = 2^20, an LDE of 2^23, three batches) and on edge values with
    a zero norm, and the composition they make against the op-by-op chain
-   it replaced (fri_composition_ops);
+   it replaced (fri_composition_ops); K11, a CTL Z's row combination, on
+   the widest view of CpuStark (2^20 rows) and ProgramStark (2^21) at
+   N=94000 and of PoseidonStark at K=512 (2^20 rows, 25 trace columns),
+   on every view at 2^10 rows of edge values (filters of 0, 1, 2 and
+   p - 1) and on a view without columns; K12, the FRI fold, at 2^24 and
+   2^20 by 16, at every arity on edge values and on a slice that starts
+   past the vector's start (a mesh rank's rows); each timed beside the
+   op-by-op chain it replaced; and ROADMAP Queue 3, item 1: goldilocks.cuh's
+   lazy helpers on every pair of edge words, and 160-bit sums started at
+   a multiple of p that take terms off (LAZY_SOURCE), built by nvcc and
+   run on the card, word for word against the same source built by g++
+   and against Python's integers mod p;
 3. parity with the JAX package: the fib-loop fixture at N=10 proved on the
    card four times on one trace generation, as a capture and a replay with
    each Merkle hasher: with blake3 caps (its programs captured), then
@@ -97,12 +108,13 @@ the rank's own process), counting the launches the host issued and those
 that graph replays ran (each capture records its graph's launches, and
 each replay adds them); the run must have launched its
 hasher's kernels (K1, K2, K3, add, sub, K5, K6 with the coset scaling and
-selector kernels, K7 in the base field, K8, K9, K10, and the hasher's
-leaf, absorb and level kernels), none of the other hasher's and no K7 in
-the extension, no K3, add or sub inside a quotient program, none of those
-or K7 inside a FRI composition program, no plain inversion, scan or
-composition pass on a CUDA tensor (the chains K7-K10 replaced refuse one
-during the prove), and its leaf and absorb
+selector kernels, K7 in the base field, K8, K9, K10, K11, K12, and the
+hasher's leaf, absorb and level kernels), none of the other hasher's and
+no K7 in the extension, no K3, add or sub inside a quotient, CTL Z or FRI
+fold program, none of those or K7 inside a FRI composition program, no
+plain inversion, scan, composition pass, CTL row combination or fold on a
+CUDA tensor (the chains K7-K12 replaced refuse one during the prove), and
+its leaf and absorb
 kernels as often as its commits' shapes need. Each records prove and verify seconds
 (a group verifies on rank 0), peak device memory and the host's peak
 resident memory.
@@ -1196,6 +1208,314 @@ def check_inv_scan_kernels(device, rng) -> dict:
     return results
 
 
+# ROADMAP Queue 3, item 1: K6 sums that took terms off a 160-bit sum started
+# at a multiple of p were once wrong on the card and right in the g++
+# build, avoided by sums that only add, never explained. This source
+# builds goldilocks.cuh's lazy helpers and that subtracting form three ways
+# (64-bit PTX borrows, 32-bit PTX borrows, 64-bit compares) beside the
+# form the kernels use now (an added and a subtracted sum, each reduced,
+# then gl::sub_ll), once with nvcc for the card and once with g++ (the
+# helpers' host twins), and check_lazy_sums holds the card's words to the
+# host's, bit for bit, and each result to Python's integers mod p.
+LAZY_TERMS = 8
+LAZY_HELPERS = 8
+LAZY_FORMS = 4
+LAZY_SOURCE = r"""
+#ifndef __CUDACC__
+#define __device__
+#define __forceinline__ inline
+#endif
+#include <cstdint>
+
+#include "goldilocks.cuh"
+
+namespace lazy {
+
+constexpr int TERMS = %(terms)d, HELPERS = %(helpers)d, FORMS = %(forms)d;
+constexpr int SUM_WORDS = 3 + 3 * TERMS;
+
+// acc -= x, the borrow out of 128 bits taken from acc.top: 64-bit borrows
+__device__ __forceinline__ void sub_u64(gl::u160& acc, gl::u128 x) {
+#ifdef __CUDA_ARCH__
+  asm("sub.cc.u64  %%0, %%0, %%3;\n\t"
+      "subc.cc.u64 %%1, %%1, %%4;\n\t"
+      "subc.u32    %%2, %%2, 0;"
+      : "+l"(acc.lo), "+l"(acc.hi), "+r"(acc.top)
+      : "l"(x.lo), "l"(x.hi));
+#else
+  const unsigned __int128 a =
+      (static_cast<unsigned __int128>(acc.hi) << 64) | acc.lo;
+  const unsigned __int128 b =
+      (static_cast<unsigned __int128>(x.hi) << 64) | x.lo;
+  acc.top -= a < b;
+  acc.lo = static_cast<uint64_t>(a - b);
+  acc.hi = static_cast<uint64_t>((a - b) >> 64);
+#endif
+}
+
+// the same on 32-bit limbs
+__device__ __forceinline__ void sub_u32(gl::u160& acc, gl::u128 x) {
+#ifdef __CUDA_ARCH__
+  uint32_t a0 = static_cast<uint32_t>(acc.lo), a1 = acc.lo >> 32;
+  uint32_t a2 = static_cast<uint32_t>(acc.hi), a3 = acc.hi >> 32;
+  asm("sub.cc.u32  %%0, %%0, %%5;\n\t"
+      "subc.cc.u32 %%1, %%1, %%6;\n\t"
+      "subc.cc.u32 %%2, %%2, %%7;\n\t"
+      "subc.cc.u32 %%3, %%3, %%8;\n\t"
+      "subc.u32    %%4, %%4, 0;"
+      : "+r"(a0), "+r"(a1), "+r"(a2), "+r"(a3), "+r"(acc.top)
+      : "r"(static_cast<uint32_t>(x.lo)),
+        "r"(static_cast<uint32_t>(x.lo >> 32)),
+        "r"(static_cast<uint32_t>(x.hi)),
+        "r"(static_cast<uint32_t>(x.hi >> 32)));
+  acc.lo = (static_cast<uint64_t>(a1) << 32) | a0;
+  acc.hi = (static_cast<uint64_t>(a3) << 32) | a2;
+#else
+  sub_u64(acc, x);
+#endif
+}
+
+// the same with 64-bit compares for the borrows (no carry flag)
+__device__ __forceinline__ void sub_cmp(gl::u160& acc, gl::u128 x) {
+  const uint64_t b0 = acc.lo < x.lo;
+  const uint32_t b1 = acc.hi < x.hi || (acc.hi == x.hi && b0);
+  acc.lo -= x.lo;
+  acc.hi = acc.hi - x.hi - b0;
+  acc.top -= b1;
+}
+
+// the helpers on one pair of words
+__device__ __forceinline__ void helpers(uint64_t a, uint64_t b, uint64_t* o) {
+  o[0] = gl::sub_small(a, static_cast<uint32_t>(b));
+  o[1] = gl::sub_ll(a, b);
+  o[2] = gl::add_ll(a, b);
+  o[3] = gl::add_eps(a, static_cast<uint32_t>(b));
+  o[4] = gl::reduce128_lazy(a, b);
+  o[5] = gl::reduce160_lazy({a, b, static_cast<uint32_t>(a ^ (b >> 32))});
+  o[6] = gl::mul_lazy(a, b);
+  o[7] = gl::add_lazy(a, gl::canonical(b));
+}
+
+// one sum: in = [start lo, hi, top, TERMS x (a, b, taken off)]
+__device__ __forceinline__ void sums(const uint64_t* in, uint64_t* o) {
+  gl::u160 s0 = {in[0], in[1], static_cast<uint32_t>(in[2])};
+  gl::u160 s1 = s0, s2 = s0, plus = {0, 0, 0}, minus = {0, 0, 0};
+  for (int t = 0; t < TERMS; ++t) {
+    const gl::u128 w = gl::mul_wide(in[3 + 3 * t], in[4 + 3 * t]);
+    if (in[5 + 3 * t]) {
+      sub_u64(s0, w);
+      sub_u32(s1, w);
+      sub_cmp(s2, w);
+      gl::acc_add(minus, w);
+    } else {
+      gl::acc_add(s0, w);
+      gl::acc_add(s1, w);
+      gl::acc_add(s2, w);
+      gl::acc_add(plus, w);
+    }
+  }
+  o[0] = gl::reduce160_lazy(s0);
+  o[1] = gl::reduce160_lazy(s1);
+  o[2] = gl::reduce160_lazy(s2);
+  o[3] = gl::sub_ll(gl::reduce160_lazy(plus), gl::reduce160_lazy(minus));
+}
+
+__device__ __forceinline__ void run(int64_t i, const uint64_t* pairs,
+                                    int64_t npairs, const uint64_t* sum_in,
+                                    int64_t nsums, uint64_t* out) {
+  if (i < npairs) {
+    helpers(pairs[2 * i], pairs[2 * i + 1], out + HELPERS * i);
+  } else if (i < npairs + nsums) {
+    const int64_t k = i - npairs;
+    sums(sum_in + SUM_WORDS * k, out + HELPERS * npairs + FORMS * k);
+  }
+}
+
+}  // namespace lazy
+
+#ifdef __CUDACC__
+__global__ void lazy_kernel(const uint64_t* pairs, int64_t npairs,
+                            const uint64_t* sum_in, int64_t nsums,
+                            uint64_t* out) {
+  lazy::run(static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+            pairs, npairs, sum_in, nsums, out);
+}
+
+extern "C" int lazy_run(const void* pairs, int64_t npairs, const void* sum_in,
+                        int64_t nsums, void* out, void* stream) {
+  const int64_t n = npairs + nsums;
+  lazy_kernel<<<static_cast<unsigned>((n + 127) / 128), 128, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(pairs), npairs,
+      static_cast<const uint64_t*>(sum_in), nsums,
+      static_cast<uint64_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+#else
+extern "C" int lazy_run(const void* pairs, int64_t npairs, const void* sum_in,
+                        int64_t nsums, void* out, void*) {
+  for (int64_t i = 0; i < npairs + nsums; ++i)
+    lazy::run(i, static_cast<const uint64_t*>(pairs), npairs,
+              static_cast<const uint64_t*>(sum_in), nsums,
+              static_cast<uint64_t*>(out));
+  return 0;
+}
+#endif
+""" % {"terms": LAZY_TERMS, "helpers": LAZY_HELPERS, "forms": LAZY_FORMS}
+# words at the lazy helpers' edges beside EDGE_VALUES: the lazy words a
+# helper may return (2^64 - 1, 2^64 - 2^32 and around them)
+LAZY_EXTRA_WORDS = ((1 << 64) - 1, (1 << 64) - 2, (1 << 64) - (1 << 32),
+                    0xFFFFFFFF00000002, (1 << 63) - 1, (1 << 32) - 2)
+
+
+def lazy_inputs(rng, random_sums: int = 4096):
+    """Every pair of EDGE_VALUES and LAZY_EXTRA_WORDS for the helpers; sums
+    started at multiples of p (p 2^e for e = 64 .. 95, random multiples
+    below 2^160, 0 and p, whose sums may leave [0, 2^160)) with LAZY_TERMS
+    terms of those words or random words, each added or taken off.
+    Returns (pairs, sums), uint64 arrays of (n, 2) and (m, 3 + 3 terms)."""
+    import numpy as np
+
+    words = np.array(EDGE_VALUES + LAZY_EXTRA_WORDS, dtype=np.uint64)
+    pairs = np.stack([np.repeat(words, len(words)),
+                      np.tile(words, len(words))], axis=1)
+    starts = [_P << e for e in range(64, 96)] + [0, _P]
+    while len(starts) < random_sums:
+        k = int(rng.integers(1, 1 << 62, dtype=np.uint64)) << int(
+            rng.integers(0, 34))
+        starts.append(k * _P)
+    rows = []
+    for start in starts:
+        row = [start & ((1 << 64) - 1), (start >> 64) & ((1 << 64) - 1),
+               start >> 128]
+        for _ in range(LAZY_TERMS):
+            if rng.integers(2):
+                a, b = (int(v) for v in words[rng.integers(0, len(words), 2)])
+            else:
+                a, b = (int(v) for v in rng.integers(0, 1 << 64, 2,
+                                                     dtype=np.uint64))
+            row += [a, b, int(rng.integers(2))]
+        rows.append(row)
+    return pairs, np.array(rows, dtype=np.uint64)
+
+
+def lazy_expected(pairs, sums):
+    """What each output must be congruent to mod p (None where the
+    subtracting sum leaves [0, 2^160), which no form promises)."""
+    out = []
+    for a, b in ((int(x), int(y)) for x, y in pairs):
+        top = (a ^ (b >> 32)) & 0xFFFFFFFF
+        out += [a - (b & 0xFFFFFFFF), a - b, a + b,
+                a + (b & 0xFFFFFFFF) * _EPSILON, a + (b << 64),
+                a + (b << 64) + (top << 128), a * b, a + b % _P]
+    for row in sums:
+        row = [int(v) for v in row]
+        total = row[0] + (row[1] << 64) + (row[2] << 128)
+        for t in range(LAZY_TERMS):
+            a, b, off = row[3 + 3 * t:6 + 3 * t]
+            total += -a * b if off else a * b
+        whole = total if 0 <= total < 1 << 160 else None
+        out += [whole, whole, whole, total]
+    return [None if v is None else v % _P for v in out]
+
+
+def lazy_host(pairs, sums, workdir: str):
+    """LAZY_SOURCE built by g++ (goldilocks.cuh's host twins) and run on
+    these inputs: the outputs' words."""
+    import ctypes
+    import shutil
+
+    import numpy as np
+
+    from olavm_tpu_torch import kernels
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("the lazy-sum check needs g++ beside nvcc")
+    src = os.path.join(workdir, "lazy_host.cpp")
+    so = os.path.join(workdir, "liblazyhost.so")
+    with open(src, "w") as f:
+        f.write(LAZY_SOURCE)
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
+                    str(kernels.CSRC), src, "-o", so], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(so)
+    out = np.zeros(LAZY_HELPERS * len(pairs) + LAZY_FORMS * len(sums),
+                   dtype=np.uint64)
+    pairs, sums = np.ascontiguousarray(pairs), np.ascontiguousarray(sums)
+    lib.lazy_run(ctypes.c_void_p(pairs.ctypes.data), ctypes.c_int64(len(pairs)),
+                 ctypes.c_void_p(sums.ctypes.data), ctypes.c_int64(len(sums)),
+                 ctypes.c_void_p(out.ctypes.data), None)
+    return out
+
+
+def lazy_card(pairs, sums, device):
+    """LAZY_SOURCE built by nvcc (kernels.generated, the kernels' flags) and
+    run on the card on these inputs: the outputs' words."""
+    import ctypes
+
+    import torch
+
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.field import gf
+
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib = kernels.generated(kernels.generated_name("lazy", LAZY_SOURCE),
+                            LAZY_SOURCE,
+                            {"lazy_run": [vp, i64, vp, i64, vp, vp]})
+    p, s = gf.from_u64(pairs, device), gf.from_u64(sums, device)
+    out = torch.zeros(LAZY_HELPERS * len(pairs) + LAZY_FORMS * len(sums),
+                      dtype=torch.int64, device=device)
+    kernels.check(lib.lazy_run(p.data_ptr(), len(pairs), s.data_ptr(),
+                               len(sums), out.data_ptr(),
+                               kernels.stream_ptr(out)), "lazy_run")
+    return gf.to_u64(out)
+
+
+LAZY_NAMES = ("sub_small", "sub_ll", "add_ll", "add_eps", "reduce128_lazy",
+              "reduce160_lazy", "mul_lazy", "add_lazy")
+LAZY_FORM_NAMES = ("subtracting, 64-bit PTX borrows",
+                   "subtracting, 32-bit PTX borrows",
+                   "subtracting, 64-bit compares",
+                   "added and subtracted sums, then sub_ll")
+
+
+def lazy_mismatches(got, pairs, sums, want_words=None) -> dict:
+    """{output name: cases} where `got` is not congruent to Python's value
+    mod p, or (with `want_words`) differs from those words."""
+    want = lazy_expected(pairs, sums)
+    names = [LAZY_NAMES[k % LAZY_HELPERS] for k in range(
+        LAZY_HELPERS * len(pairs))] + [LAZY_FORM_NAMES[k % LAZY_FORMS]
+                                       for k in range(LAZY_FORMS * len(sums))]
+    bad: dict = {}
+    for k, (g_, w) in enumerate(zip(got, want)):
+        if (w is not None and int(g_) % _P != w) or (
+                want_words is not None and g_ != want_words[k]):
+            bad[names[k]] = bad.get(names[k], 0) + 1
+    return bad
+
+
+def check_lazy_sums(device, rng) -> dict:
+    """ROADMAP Queue 3, item 1, on the card: LAZY_SOURCE by nvcc against its
+    g++ build, word for word, and both against Python's integers mod p, on
+    every pair of edge words and on sums started at multiples of p. Raises
+    with the outputs that disagree."""
+    pairs, sums = lazy_inputs(rng)
+    with tempfile.TemporaryDirectory() as workdir:
+        host = lazy_host(pairs, sums, workdir)
+    card = lazy_card(pairs, sums, device)
+    result = {"pairs": len(pairs), "sums": len(sums),
+              "host_vs_python": lazy_mismatches(host, pairs, sums),
+              "card_vs_host": lazy_mismatches(card, pairs, sums, host)}
+    log(f"  lazy helpers and 160-bit sums (Queue 3, item 1): {len(pairs)} "
+        f"pairs, {len(sums)} sums; card against g++ and Python: "
+        f"{result['card_vs_host'] or 'equal'}; g++ against Python: "
+        f"{result['host_vs_python'] or 'equal'}")
+    if result["host_vs_python"] or result["card_vs_host"]:
+        raise AssertionError(f"lazy helpers or sums disagree: {result}")
+    return result
+
+
 # K9 and K10 (csrc/fri.cu), the FRI composition, at the main path's shapes:
 # (trace, Z, quotient) widths, the permutation Zs among the Zs (the CTL Zs
 # follow them) and log2 of the rows, of CpuStark at N=94000 and of
@@ -1380,29 +1700,216 @@ def check_fri_kernels(device, rng) -> dict:
     return results
 
 
-def time_plain_steps(device, rng) -> dict:
-    """Card times of the main-path steps that stay plain torch in this
-    version (each becomes a hand-written kernel later)."""
+# K11 (csrc/ctl.cu), a CTL Z's row combination, at the main path's shapes:
+# (OlaStark table, log2 of its rows) whose widest view is timed and
+# checked, of N=94000 (CpuStark, 2^20 rows, and ProgramStark, 2^21) and of
+# K=512 (PoseidonStark, 2^20 rows, whose views are the widest: 24 columns
+# over 25 trace columns)
+CTL_SHAPES = {"N=94000 CpuStark": (0, 20), "N=94000 ProgramStark": (10, 21),
+              "K=512 PoseidonStark": (5, 20)}
+
+
+def ctl_views() -> list:
+    """Every view of every cross-table lookup, in the prover's order."""
+    from olavm_tpu_torch.tables.ola_stark import all_cross_table_lookups
+
+    return [t for ctl in all_cross_table_lookups()
+            for t in list(ctl.looking_tables) + [ctl.looked_table]]
+
+
+def widest_view(table: int):
+    """The view of `table` that reads the most distinct trace columns."""
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+
+    return max((t for t in ctl_views() if t.table == table),
+               key=lambda t: ck.view_params(t.columns, t.filter_column).slots)
+
+
+def ctl_case(view, n: int, rng, device, edge: bool = False):
+    """A trace of the view's table width and n rows, random canonical values
+    made on the card (or EDGE_VALUES from numpy with `edge`), the columns
+    its filter reads drawn from 0, 1, 2 and p - 1 (mostly 0), and a
+    [beta, gamma] bank. Returns (trace, bank, rows whose filter is 1)."""
     import numpy as np
     import torch
 
     from olavm_tpu_torch.field import gf
-    from olavm_tpu_torch.field import gfe
-    from olavm_tpu_torch.stark.prover_device import fri_fold
+    from olavm_tpu_torch.tables.ola_stark import OlaStark
 
-    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+    width = OlaStark().starks[view.table].COLUMNS
+    if edge:
+        trace = gf.from_u64(edge_values(rng, (width, n)), device)
+        bank = gf.from_u64(edge_values(rng, 2), device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(
+            int(rng.integers(1 << 31)))
+        trace = torch.randint(0, 1 << 62, (width, n), generator=gen,
+                              device=device)
+        bank = gf.from_u64(rng.integers(0, gf.P, 2, dtype=np.uint64), device)
+    # a filter 1 - x then gives 1, 0, p - 1 and 2
+    values = gf.from_u64(np.array([0, 0, 0, 1, 1, 2, _P - 1],
+                                  dtype=np.uint64), device)
+    filt = view.filter_column
+    if filt is None:
+        return trace, bank, n
+    for c, _ in filt.linear_combination:
+        trace[c] = values[torch.from_numpy(
+            rng.integers(0, len(values), n)).to(device)]
+    f = gf.full((n,), filt.constant % _P, device)
+    for c, k in filt.linear_combination:
+        f = gf.add_plain(f, gf.mul_plain(trace[c], gf.scalar(k, device)))
+    return trace, bank, int((f == 1).sum())
 
-    def rand(shape):
-        # canonical values below 2^62, made on the card
-        return torch.randint(0, 1 << 62, shape, generator=gen, device=device)
 
-    out = {}
-    coeffs = gfe.GFE(rand((1 << 23,)), rand((1 << 23,)))
-    beta = tuple(int(v) for v in rng.integers(0, gf.P, 2, dtype=np.uint64))
-    out["fri_fold 2^23 arity 16"] = cuda_ms(lambda: fri_fold(coeffs, beta, 16), 3)
-    for k, v in out.items():
-        log(f"  plain step {k}: {v:.3f} ms")
-    return out
+def ctl_combine_bound(view, n: int, on: int) -> dict:
+    """K11's least time: each distinct trace column the view reads read
+    once and the output written, 8 bytes a row each; a product and its sum
+    a value slot on the `on` rows whose filter is 1 and a filter slot on
+    every row, each sum reduced once, and beta's powers and the
+    coefficients (a product a term) once."""
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+
+    v = ck.view_params(view.columns, view.filter_column)
+    value = sum(1 for s in range(v.slots) if v.use[s] & ck.USE_VALUE)
+    filt = sum(1 for s in range(v.slots) if v.use[s] & ck.USE_FILTER)
+    terms = value * on + filt * n
+    sums = on + (n if v.filtered else 0)
+    setup = v.columns + v.terms
+    return bound(8 * (v.slots + 1) * n,
+                 terms * (OPS_PRODUCT + OPS_ACCUMULATE)
+                 + sums * OPS_REDUCE_WIDE + setup * OPS_MUL,
+                 (terms + setup) * MUL_PRODUCT)
+
+
+# K12 (csrc/fri.cu), the FRI fold, at the main path's shapes: (log2 of the
+# coefficients, arity); N=94000's largest fold is 2^24 -> 2^20 (ProgramStark's
+# 2^21 rows at rate 3)
+FOLD_SHAPES = {"2^24 -> 2^20": (24, 16), "2^20 -> 2^16": (20, 16)}
+
+
+def fold_case(log_m: int, arity: int, rng, device, edge: bool = False):
+    """Coefficients (re, im) of 2^log_m values made on the card (or
+    EDGE_VALUES from numpy) and the (2, arity) powers of a beta from
+    `rng`, as fri_fold makes them. Returns (re, im, bpows)."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch.field import gf
+
+    m = 1 << log_m
+    if edge:
+        re, im = (gf.from_u64(edge_values(rng, m), device) for _ in range(2))
+        beta = [int(v) for v in edge_values(rng, 2)]
+    else:
+        gen = torch.Generator(device=device).manual_seed(
+            int(rng.integers(1 << 31)))
+        re, im = (torch.randint(0, 1 << 62, (m,), generator=gen,
+                                device=device) for _ in range(2))
+        beta = [int(v) for v in rng.integers(0, gf.P, 2, dtype=np.uint64)]
+    pws = [(1, 0)]
+    for _ in range(1, arity):
+        a, b = pws[-1]
+        pws.append(((a * beta[0] + 7 * b * beta[1]) % _P,
+                    (a * beta[1] + b * beta[0]) % _P))
+    return re, im, gf.from_u64(np.asarray(pws, dtype=np.uint64).T.copy(),
+                               device)
+
+
+def fri_fold_bound(m: int, arity: int) -> dict:
+    """K12's least time: the (m,) re and im coefficients read and the (2,
+    m / arity) output written; 4 (arity - 1) products an output into three
+    160-bit sums, the im x im sum reduced and times 7 once, two
+    reductions."""
+    out = m // arity
+    terms = (4 * (arity - 1) + 1) * out
+    return bound(16 * m + 16 * out,
+                 terms * (OPS_PRODUCT + OPS_ACCUMULATE)
+                 + 3 * out * OPS_REDUCE_WIDE, terms * MUL_PRODUCT)
+
+
+def check_ctl_fold_kernels(device, rng) -> dict:
+    """K11 (ctl_combine) against its plain version, exactly, on the widest
+    view of each CTL_SHAPES table at its rows, on every view at 2^10 rows of
+    EDGE_VALUES (filters of 0, 1, 2 and p - 1) and on a view without
+    columns; K12 (fri_fold) against its plain version at FOLD_SHAPES and at
+    every arity on EDGE_VALUES, and on a slice that starts past the
+    vector's start (a mesh rank's rows). Each timed by CUDA events at its
+    largest shape, beside the op-by-op chain it replaced."""
+    import torch
+
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+    from olavm_tpu_torch.stark import fri_kernels as fk
+
+    results = {}
+
+    def record(name, err, ms, plain_ms, ops_ms, least, detail):
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "chain_ms": ops_ms, **least, "library_ms": None,
+                         "checked": detail}
+        log(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, the op-by-op chain {ops_ms:.4f} ms, bound "
+            f"{least['bound_ms']:.4f} ms by {least['bound_by']} "
+            f"({least['bound_ms'] / ms:.0%}; {detail})")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    # K11
+    err, timed = 0, None
+    for name, (table, log_n) in CTL_SHAPES.items():
+        view = widest_view(table)
+        trace, bank, on = ctl_case(view, 1 << log_n, rng, device)
+        args = (trace, view.columns, view.filter_column, bank)
+        err = max(err, max_abs_err(ck.ctl_combine(*args),
+                                   ck.ctl_combine_plain(*args)))
+        least = ctl_combine_bound(view, 1 << log_n, on)
+        if timed is None or least["bytes"] > timed[2]["bytes"]:
+            timed = (name, args, least)
+    views = ctl_views()
+    for view in views:
+        trace, bank, _ = ctl_case(view, 1 << 10, rng, device, edge=True)
+        args = (trace, view.columns, view.filter_column, bank)
+        err = max(err, max_abs_err(ck.ctl_combine(*args),
+                                   ck.ctl_combine_plain(*args)))
+    err = max(err, max_abs_err(ck.ctl_combine(trace, [], None, bank),
+                               ck.ctl_combine_plain(trace, [], None, bank)))
+    name, args, least = timed
+    ms = cuda_ms(lambda: ck.ctl_combine(*args), 20)
+    plain_ms = cuda_ms(lambda: ck.ctl_combine_plain(*args), 2)
+    ops_ms = cuda_ms(lambda: ck.ctl_combine_ops(*args), 2)
+    record("ctl_combine", err, ms, plain_ms, ops_ms, least,
+           f"the widest view of {', '.join(CTL_SHAPES)} at their rows, all "
+           f"{len(views)} views at 2^10 rows of edge values, a view "
+           f"without columns; times at {name}")
+    del timed, args, trace
+    torch.cuda.empty_cache()
+
+    # K12
+    err, timed = 0, None
+    for name, (log_m, arity) in FOLD_SHAPES.items():
+        re, im, bpows = fold_case(log_m, arity, rng, device)
+        err = max(err, max_abs_err(fk.fri_fold(re, im, bpows),
+                                   fk.fri_fold_plain(re, im, bpows)))
+        if timed is None:
+            timed = (name, (re, im, bpows), fri_fold_bound(1 << log_m, arity))
+    for arity in fk.FOLD_ARITIES:
+        re, im, bpows = fold_case(12, arity, rng, device, edge=True)
+        err = max(err, max_abs_err(fk.fri_fold(re, im, bpows),
+                                   fk.fri_fold_plain(re, im, bpows)))
+        lo, hi = 3 * arity, (1 << 12) - 5 * arity  # a mesh rank's rows
+        err = max(err, max_abs_err(fk.fri_fold(re[lo:hi], im[lo:hi], bpows),
+                                   fk.fri_fold_plain(re[lo:hi], im[lo:hi],
+                                                     bpows)))
+    name, args, least = timed
+    ms = cuda_ms(lambda: fk.fri_fold(*args), 20)
+    plain_ms = cuda_ms(lambda: fk.fri_fold_plain(*args), 2)
+    ops_ms = cuda_ms(lambda: fk.fri_fold_ops(*args), 2)
+    record("fri_fold", err, ms, plain_ms, ops_ms, least,
+           f"{', '.join(FOLD_SHAPES)}, every arity at 2^12 edge values and "
+           f"on a slice; times at {name}")
+    del timed, args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1570,15 +2077,17 @@ def prove_and_verify(prepared, device, merkle_hasher: str):
 
 @contextlib.contextmanager
 def plain_chains_refused():
-    """Within it, the plain versions that K7, K8, K9 and K10 replaced on the
-    main path (the exp_const chain of inversion, gf.inv_plain,
-    gfe.inv_plain, the Hillis-Steele gf.prefix_prod_plain, the FRI
-    composition's fri_combine_plain and fri_quotient_plain) raise when
-    given a CUDA tensor: on the card every inversion, scan and composition
-    must take its kernel."""
+    """Within it, the plain versions that K7-K12 replaced on the main path
+    (the exp_const chain of inversion, gf.inv_plain, gfe.inv_plain, the
+    Hillis-Steele gf.prefix_prod_plain, the FRI composition's
+    fri_combine_plain and fri_quotient_plain, the CTL Z's
+    ctl_combine_plain and the fold's fri_fold_plain) raise when given a
+    CUDA tensor: on the card every inversion, scan, composition, CTL row
+    combination and fold must take its kernel."""
     import torch
 
     from olavm_tpu_torch.field import gf, gfe
+    from olavm_tpu_torch.stark import ctl_kernels as ck
     from olavm_tpu_torch.stark import fri_kernels as fk
 
     def refuse(name, fn):
@@ -1594,7 +2103,8 @@ def plain_chains_refused():
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (gf, "exp_const"), (gf, "inv_plain"), (gfe, "inv_plain"),
         (gf, "prefix_prod_plain"), (fk, "fri_combine_plain"),
-        (fk, "fri_quotient_plain"))]
+        (fk, "fri_quotient_plain"), (ck, "ctl_combine_plain"),
+        (fk, "fri_fold_plain"))]
     for mod, name, fn in saved:
         setattr(mod, name, refuse(f"{mod.__name__}.{name}", fn))
     try:
@@ -1774,13 +2284,17 @@ def cli_path(workdir: str) -> dict:
 SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub",
                   "eval_points", "constraints", "scale_powers",
                   "quotient_selectors", "gf_inv", "prefix_prod",
-                  "fri_combine", "fri_quotient")
+                  "fri_combine", "fri_quotient", "ctl_combine", "fri_fold")
 # kernels that the quotient's programs must not launch: K6 and its fixed
 # kernels took their place
 NOT_IN_QUOTIENT = ("gf_mul", "gf_add", "gf_sub")
 # kernels that the FRI composition's programs must not launch: K9 and K10
 # took their place (K7's extension entry left the main path with them)
 NOT_IN_FRICOMP = ("gf_mul", "gf_add", "gf_sub", "gf_ext_inv")
+# kernels that the CTL Z and FRI fold programs must not launch: K11 and K12
+# took their place
+NOT_IN_CTLZ = ("gf_mul", "gf_add", "gf_sub")
+NOT_IN_FRIFOLD = ("gf_mul", "gf_add", "gf_sub")
 PATH_KERNELS = {
     "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level",
                                 "blake3_absorb"),
@@ -2050,6 +2564,10 @@ KERNELS = (
      "olavm_tpu/stark/prover_device.py:733", ("fri_combine",)),
     ("fri_quotient", "cuda", "olavm_tpu_torch/csrc/fri.cu",
      "olavm_tpu/stark/prover_device.py:794", ("fri_quotient",)),
+    ("ctl_combine", "cuda", "olavm_tpu_torch/csrc/ctl.cu",
+     "olavm_tpu/stark/ctl_device.py:62", ("ctl_combine",)),
+    ("fri_fold", "cuda", "olavm_tpu_torch/csrc/fri.cu",
+     "olavm_tpu/stark/prover_device.py:887", ("fri_fold",)),
 )
 
 
@@ -2112,7 +2630,8 @@ def run() -> int:
     report["kernels"].update(check_quotient_kernels(device, rng))
     report["kernels"].update(check_inv_scan_kernels(device, rng))
     report["kernels"].update(check_fri_kernels(device, rng))
-    report["plain_steps_ms"] = time_plain_steps(device, rng)
+    report["kernels"].update(check_ctl_fold_kernels(device, rng))
+    report["lazy_sums"] = check_lazy_sums(device, rng)
     torch.cuda.empty_cache()
 
     def path(label, prepared, hasher, golden_file, replays=False):
@@ -2136,7 +2655,9 @@ def run() -> int:
             raise AssertionError(f"{label}: must replay programs captured "
                                  f"by an earlier prove, ran {rep['programs']}")
         for tag, refused in (("qclass", NOT_IN_QUOTIENT),
-                             ("fricomp", NOT_IN_FRICOMP)):
+                             ("fricomp", NOT_IN_FRICOMP),
+                             ("ctlz", NOT_IN_CTLZ),
+                             ("frifold", NOT_IN_FRIFOLD)):
             stray = {k: st["kernels"] for k, st in jitcache.stats().items()
                      if st["tag"] == tag
                      and any(n in st["kernels"] for n in refused)}

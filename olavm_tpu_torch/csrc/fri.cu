@@ -1,7 +1,7 @@
 // K9 and K10: the FRI composition's two passes (stark/fri_kernels.py), so
 // that the composition runs K9, one batched K1 forward, K10, K1 inverse and
 // the coset scaling (csrc/quotient.cu gl_scale_powers), and no K3, add,
-// sub or K7 chain.
+// sub or K7 chain; and K12, the FRI fold, one launch a fold.
 //
 // Replace no Pallas kernel: olavm_tpu forms the composition with jnp
 // programs (olavm_tpu/stark/prover_device.py:733-769 `horner_lde`, the
@@ -51,6 +51,22 @@
 // block. Its instructions hold it (about 1,850 a point with the
 // exponentiations a thread, against the bound's 952 operations; PERF.md).
 //
+// K12 gl_fri_fold: one FRI fold (olavm_tpu/stark/prover_device.py:887-921
+// fold_fn, the "frifold" program, which the port ran as arity - 1
+// extension products and sums over strided columns: about 244 K3, add, sub
+// launches a fold at arity 16),
+//   out[part][k] = (sum_{i < A} c_{kA+i} beta^i)[part],  A the arity,
+// from the coefficients' re and im vectors and the (2, A) bank of beta's
+// powers (beta^0 = 1 is not read: the first coefficient is added as it
+// is). With (a + b phi)(c + d phi) = ac + 7 bd + (ad + bc) phi, a thread
+// keeps three 160-bit sums an output (re x re, im x im and the im part's
+// two products), reduces the im x im sum once and adds it times 7 (W) into
+// the re sum, and reduces each part once. A thread's A values of a vector
+// are 8 A contiguous bytes, which it reads with 16-byte vector loads, all
+// issued before the products (a warp's loads cover 32 x 8 A contiguous
+// bytes, each 32-byte sector read by two loads in a row). Bound: device
+// memory, 16 A bytes read and 16 written an output; 4 (A - 1) + 1 products.
+//
 // The kernels call only goldilocks.cuh's gl:: helpers, and K10's first
 // thread writes its block's shared constants before any other thread
 // reads them, so with the CUDA qualifiers stubbed (shared memory as a
@@ -72,6 +88,10 @@ constexpr int QUOTIENT_THREADS = 128;
 // points a thread of K10: the running products of their norms' products
 // in registers
 constexpr int QUOTIENT_CHUNK = 8;
+constexpr int FOLD_THREADS = 128;
+// blocks of a K12 launch at most (each thread then folds several outputs
+// with beta's powers loaded once)
+constexpr int FOLD_MAX_BLOCKS = 132 * 8;
 // each batch's constants in K10's shared memory: z, 7 zi, 7 zi^2, y,
 // alpha^len and 7 times its im part
 enum { ZR, ZI, ZI7, ZZ7, Y0, Y1, C0, C1, C17, CONSTANTS };
@@ -277,6 +297,54 @@ __global__ void __launch_bounds__(QUOTIENT_THREADS)
   }
 }
 
+template <int A>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    fold_kernel(const uint64_t* __restrict__ re,
+                const uint64_t* __restrict__ im,
+                const uint64_t* __restrict__ bpows,
+                uint64_t* __restrict__ out, int64_t m) {
+  uint64_t br[A], bi[A];
+#pragma unroll
+  for (int i = 1; i < A; ++i) {
+    br[i] = __ldg(bpows + i);
+    bi[i] = __ldg(bpows + A + i);
+  }
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * FOLD_THREADS;
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * FOLD_THREADS +
+                   threadIdx.x;
+       k < m; k += stride) {
+    const ulonglong2* pr = reinterpret_cast<const ulonglong2*>(re + k * A);
+    const ulonglong2* pi = reinterpret_cast<const ulonglong2*>(im + k * A);
+    uint64_t r[A], q[A];
+#pragma unroll
+    for (int i = 0; i < A / 2; ++i) {
+      const ulonglong2 a = __ldg(pr + i), b = __ldg(pi + i);
+      r[2 * i] = a.x;
+      r[2 * i + 1] = a.y;
+      q[2 * i] = b.x;
+      q[2 * i + 1] = b.y;
+    }
+    gl::u160 s_re = {r[0], 0, 0}, s_w = {0, 0, 0}, s_im = {q[0], 0, 0};
+#pragma unroll
+    for (int i = 1; i < A; ++i) {
+      gl::acc_add(s_re, gl::mul_wide(r[i], br[i]));
+      gl::acc_add(s_w, gl::mul_wide(q[i], bi[i]));
+      gl::acc_add(s_im, gl::mul_wide(r[i], bi[i]));
+      gl::acc_add(s_im, gl::mul_wide(q[i], br[i]));
+    }
+    gl::acc_add(s_re, gl::mul_wide(gl::reduce160_lazy(s_w), W));
+    out[k] = gl::canonical(gl::reduce160_lazy(s_re));
+    out[m + k] = gl::canonical(gl::reduce160_lazy(s_im));
+  }
+}
+
+inline unsigned fold_blocks(int64_t m) {
+  const int64_t b = (m + FOLD_THREADS - 1) / FOLD_THREADS;
+  return static_cast<unsigned>(b < 1 ? 1
+                                     : (b > FOLD_MAX_BLOCKS ? FOLD_MAX_BLOCKS
+                                                            : b));
+}
+
 inline unsigned combine_blocks(int64_t size) {
   const int64_t per_block = COMBINE_THREADS * COMBINE_COLS;
   return static_cast<unsigned>((size + per_block - 1) / per_block);
@@ -347,5 +415,25 @@ extern "C" int gl_fri_quotient(const void* plan, int batches,
       shift, omega, step, back)
   FRI_DISPATCH(batches, FRI_QUOTIENT)
 #undef FRI_QUOTIENT
+  return static_cast<int>(cudaGetLastError());
+}
+
+// re, im: (m A,) each, 16-byte aligned; bpows: (2, A) [re; im]; out: (2, m)
+extern "C" int gl_fri_fold(const void* re, const void* im, const void* bpows,
+                           void* out, int64_t m, int arity, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (m <= 0) return 0;
+#define FRI_FOLD(A)                                                         \
+  fri::fold_kernel<A><<<fri::fold_blocks(m), fri::FOLD_THREADS, 0, s>>>(    \
+      static_cast<const uint64_t*>(re), static_cast<const uint64_t*>(im),   \
+      static_cast<const uint64_t*>(bpows), static_cast<uint64_t*>(out), m)
+  switch (arity) {
+    case 2: FRI_FOLD(2); break;
+    case 4: FRI_FOLD(4); break;
+    case 8: FRI_FOLD(8); break;
+    case 16: FRI_FOLD(16); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FRI_FOLD
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,10 +2,12 @@
 polynomials; counterpart of olavm_tpu/stark/ctl_device.py
 (circuits/src/stark/cross_table_lookup.rs:224-311, permutation.rs:103-160).
 
-The reference's row-by-row cumulative product is gf.prefix_prod (on the
-card one launch of K8, csrc/scan.cu; the permutation Z's exclusive form in
-the same launch), filters are selects, and the denominators of the
-permutation argument are inverted element-wise by gf.inv (K7,
+A CTL Z's rows are combined by K11 (stark/ctl_kernels.py, csrc/ctl.cu:
+every column's linear combination, their sum by powers of beta plus gamma,
+and the filter, in one pass), the reference's row-by-row cumulative product
+is gf.prefix_prod (on the card one launch of K8, csrc/scan.cu; the
+permutation Z's exclusive form in the same launch), and the denominators of
+the permutation argument are inverted element-wise by gf.inv (K7,
 csrc/gf_inv.cu). Each Z is one program
 (utils/jitcache.py): a CUDA graph on the card, keyed by the view's column
 structure and the trace's shape, replayed for every later view of that
@@ -32,7 +34,8 @@ from ..stark.stark_base import (
 from ..utils import jitcache
 
 from ..field import gf
-from .ops import TorchOps
+from . import ctl_kernels
+from .ctl_kernels import column_sig
 
 
 @dataclass(frozen=True)
@@ -59,34 +62,13 @@ class DevChallenge:
         return F.add(_tree_sum(F, scaled), self.gamma)
 
 
-def column_sig(col: Column | None):
-    """A Column's structure, as a program key holds it."""
-    if col is None:
-        return None
-    return tuple(col.linear_combination), col.constant
-
-
-def _column_eval(col: Column, trace: torch.Tensor, F: TorchOps) -> torch.Tensor:
-    """Column linear combination over a (C, N) table -> (N,)."""
-    acc = gf.full((trace.shape[1],), col.constant % g.P, trace.device)
-    for c, k in col.linear_combination:
-        acc = gf.add(acc, F.scalar_mul(trace[c], k))
-    return acc
-
-
 def ctl_z_device(trace: torch.Tensor, columns: list[Column], filter_column,
                  beta_gamma: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix product of the filtered combined rows; beta_gamma is
-    the (2,) device bank [beta, gamma]."""
-    F = TorchOps(trace.device)
-    n = trace.shape[1]
-    one = gf.ones((n,), trace.device)
-    evals = [_column_eval(col, trace, F) for col in columns]
-    combined = DevChallenge(beta_gamma[0], beta_gamma[1]).combine_ops(F, evals)
-    if filter_column is not None:
-        filt = _column_eval(filter_column, trace, F)
-        combined = gf.select(gf.eq(filt, one), combined.expand(n), one)
-    return gf.prefix_prod(combined.expand(n))
+    the (2,) device bank [beta, gamma]: on the card one K11 launch (the row
+    combination, stark/ctl_kernels.py) and one K8 launch."""
+    return gf.prefix_prod(ctl_kernels.ctl_combine(trace, columns,
+                                                  filter_column, beta_gamma))
 
 
 def _ctl_z_program(trace: torch.Tensor, columns, filter_column):

@@ -1,5 +1,5 @@
-"""The FRI composition's two passes, K9 and K10 (csrc/fri.cu), with their
-plain versions.
+"""The FRI composition's two passes, K9 and K10, and the FRI fold, K12
+(csrc/fri.cu), with their plain versions.
 
 prove_openings_device forms, over the LDE coset,
 F(x) = x * sum_b alpha^{suffix_b} (C_b(x) - y_b) / (x - z_b), with C_b the
@@ -11,11 +11,14 @@ gives the static plan and the bank of challenge-derived values). It runs:
   ntt           (K1)  one batched forward transform: every C_b on the coset
   fri_quotient  (K10) F(x_i) at every point x_i = shift * w^i of the coset
 
+fri_fold (K12) folds the coefficients of a FRI round by arity, out[k] =
+sum_i c[k arity + i] beta^i in the extension, in one launch.
+
 On a CUDA tensor each wrapper launches its kernel or raises, naming the
 kernel and the plan; on a CPU tensor it runs its plain version, which
 repeats the kernel's arithmetic on the plain field ops (gf.*_plain) and runs
-on any device. prover_device.fri_composition_ops, the earlier op-by-op
-chain, is the yardstick both are held to.
+on any device. prover_device.fri_composition_ops and fri_fold_ops, the
+earlier op-by-op chains, are the yardsticks they are held to.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 from .. import kernels
 from ..field import gf
 from ..field import goldilocks as g
-from ..field.gfe import W
+from ..field import gfe
+from ..field.gfe import GFE, W
 from ..utils.bits import log2_strict
 
 # csrc/fri.cu's limits of a plan and its K9 segment table
@@ -236,3 +240,80 @@ def quotient_plain(values: torch.Tensor, bank: torch.Tensor, points,
                   gf.add_plain(gf.add_plain(gf.mul_plain(f0, c1),
                                             gf.mul_plain(f1, c0)), q1))
     return torch.stack([gf.mul_plain(f0, x), gf.mul_plain(f1, x)])
+
+
+# ---------------------------------------------------------------------------
+# K12: the FRI fold
+# ---------------------------------------------------------------------------
+
+FOLD_ARITIES = (2, 4, 8, 16)
+
+
+def fri_fold(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
+             ) -> torch.Tensor:
+    """(2, m / arity): the re and im parts of sum_i c[k * arity + i] beta^i
+    for the (m,) re and im parts of the coefficients and the (2, arity)
+    re and im parts of beta's powers (beta^0 = 1 not read). K12 on CUDA
+    tensors, fri_fold_plain on CPU tensors."""
+    if bpows.device.type != "cuda":
+        return fri_fold_plain(re, im, bpows)
+    arity = bpows.shape[1]
+    re, im, bpows = re.contiguous(), im.contiguous(), bpows.contiguous()
+    kernels.require_cuda_int64(re, im, bpows)
+    if (arity not in FOLD_ARITIES or bpows.shape != (2, arity)
+            or re.dim() != 1 or re.shape != im.shape
+            or re.shape[0] % arity):
+        raise ValueError(f"fri_fold: coefficients {tuple(re.shape)} and "
+                         f"{tuple(im.shape)}, powers {tuple(bpows.shape)}: "
+                         f"csrc/fri.cu folds (m,) vectors by an arity of "
+                         f"{FOLD_ARITIES}")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError("fri_fold: csrc/fri.cu reads the coefficients with "
+                         "16-byte loads; a slice must start 16-byte aligned")
+    m = re.shape[0] // arity
+    out = torch.empty((2, m), dtype=torch.int64, device=re.device)
+    kernels.check(kernels.lib("fri").gl_fri_fold(
+        re.data_ptr(), im.data_ptr(), bpows.data_ptr(), out.data_ptr(), m,
+        arity, kernels.stream_ptr(re)), f"fri_fold (arity {arity}, {m} rows)")
+    kernels.count("fri_fold")
+    return out
+
+
+def _ext_mul_plain(a: GFE, b: GFE) -> GFE:
+    """gfe.mul on the plain ops (Karatsuba's three products)."""
+    t0 = gf.mul_plain(a.re, b.re)
+    t1 = gf.mul_plain(a.im, b.im)
+    t2 = gf.mul_plain(gf.add_plain(a.re, a.im), gf.add_plain(b.re, b.im))
+    return GFE(gf.add_plain(t0, gf.mul_plain(t1, gf.scalar(W, t1.device))),
+               gf.sub_plain(t2, gf.add_plain(t0, t1)))
+
+
+def _ext_add_plain(a: GFE, b: GFE) -> GFE:
+    return GFE(gf.add_plain(a.re, b.re), gf.add_plain(a.im, b.im))
+
+
+def _fold_chain(mul, add, re, im, bpows) -> torch.Tensor:
+    """The fold as the port ran it before K12: arity - 1 extension products
+    and sums over strided columns."""
+    arity = bpows.shape[1]
+    re = re.reshape(-1, arity)
+    im = im.reshape(-1, arity)
+    acc = GFE(re[:, 0], im[:, 0])
+    for i in range(1, arity):
+        acc = add(acc, mul(GFE(re[:, i], im[:, i]),
+                           GFE(bpows[0, i], bpows[1, i])))
+    return torch.stack([acc.re, acc.im])
+
+
+def fri_fold_plain(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain version of K12: the chain it replaced on the plain field ops."""
+    return _fold_chain(_ext_mul_plain, _ext_add_plain, re, im, bpows)
+
+
+def fri_fold_ops(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
+                 ) -> torch.Tensor:
+    """The chain K12 replaced, op by op through gfe (on the card 165 K3, add
+    and sub launches at arity 16, with their fills and copies): the
+    yardstick."""
+    return _fold_chain(gfe.mul, gfe.add, re, im, bpows)

@@ -731,15 +731,9 @@ def fri_fold(coeffs: gfe.GFE, beta, arity: int, mesh=None) -> gfe.GFE:
 def fold_stacked(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
                  ) -> torch.Tensor:
     """fri_fold of (m,) re and im parts by the (2, arity) re and im parts of
-    beta's powers, as one (2, m / arity) tensor of re and im."""
-    arity = bpows.shape[1]
-    re = re.reshape(-1, arity)
-    im = im.reshape(-1, arity)
-    acc = gfe.GFE(re[:, 0], im[:, 0])
-    for i in range(1, arity):
-        acc = gfe.add(acc, gfe.mul(gfe.GFE(re[:, i], im[:, i]),
-                                   gfe.GFE(bpows[0, i], bpows[1, i])))
-    return torch.stack([acc.re, acc.im])
+    beta's powers, as one (2, m / arity) tensor of re and im: K12 (one
+    launch, stark/fri_kernels.fri_fold) on the card."""
+    return fk.fri_fold(re, im, bpows)
 
 
 def fri_refft(coeffs: gfe.GFE, shift: int) -> gfe.GFE:

@@ -6,7 +6,10 @@ the kernels equal to olavm_tpu's host proof.
 
 K7 (inversion) and K8 (the grand-product scan) are also checked on all
 zeros, a zero in every chunk, lengths around a tile and inside a CUDA
-graph replayed on other inputs.
+graph replayed on other inputs; K11 (a CTL Z's row combination) on every
+view and on the widest at 2^20 rows, K12 (the FRI fold) at 2^24 and on
+slices; goldilocks.cuh's lazy helpers and 160-bit sums that take terms off
+against their g++ build (ROADMAP Queue 3, item 1).
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -781,3 +784,150 @@ def test_fri_kernels_on_a_toy_proves_composition(dev):
     *coeffs, bank = inputs
     _fri_check(coeffs, bank, key[3], key[2])
     jitcache.clear()
+
+
+# ---------------------------------------------------------------------------
+# K11, a CTL Z's row combination (csrc/ctl.cu), and K12, the FRI fold
+# (csrc/fri.cu)
+# ---------------------------------------------------------------------------
+
+
+def test_ctl_combine_kernel_on_the_widest_view_at_2_20(dev):
+    """The widest view (PoseidonStark's: 24 columns over 25 trace columns)
+    at 2^20 rows, random and edge values, its filter's columns 0, 1, 2 and
+    p - 1: one launch, equal to the plain version."""
+    import chip_smoke
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+
+    rng = np.random.default_rng(11)
+    view = chip_smoke.widest_view(5)
+    assert ck.view_params(view.columns, view.filter_column).slots == 25
+    for edge in (False, True):
+        trace, bank, on = chip_smoke.ctl_case(view, 1 << 20, rng, dev, edge)
+        assert 0 < on < 1 << 20
+        args = (trace, view.columns, view.filter_column, bank)
+        before = kernels.LAUNCHES["ctl_combine"]
+        got = ck.ctl_combine(*args)
+        assert kernels.LAUNCHES["ctl_combine"] == before + 1
+        assert torch.equal(got, ck.ctl_combine_plain(*args))
+        assert torch.equal(got, ck.ctl_combine_ops(*args))
+
+
+@pytest.mark.parametrize("n", [1, 3, 257, 135_168 + 77])
+def test_ctl_combine_kernel_on_every_view(dev, n):
+    import chip_smoke
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+
+    rng = np.random.default_rng(n)
+    for i, view in enumerate(chip_smoke.ctl_views()):
+        trace, bank, _ = chip_smoke.ctl_case(view, n, rng, dev, edge=i % 2)
+        args = (trace, view.columns, view.filter_column, bank)
+        assert torch.equal(ck.ctl_combine(*args),
+                           ck.ctl_combine_plain(*args)), i
+    assert torch.equal(ck.ctl_combine(trace, [], None, bank),
+                       bank[1].expand(n))
+
+
+def test_ctl_z_program_replays_under_another_bank(dev):
+    """A CTL Z captured in a graph (K11, then K8) and replayed with the
+    bank refilled gives the new challenges' Z: no challenge is baked into
+    the capture."""
+    import chip_smoke
+    from olavm_tpu_torch.stark import ctl_device as tctl
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+
+    rng = np.random.default_rng(12)
+    view = chip_smoke.widest_view(0)
+    trace, bank, _ = chip_smoke.ctl_case(view, 1 << 14, rng, dev)
+    static = bank.clone()
+    tctl.ctl_z_device(trace, view.columns, view.filter_column, static)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tctl.ctl_z_device(trace, view.columns, view.filter_column,
+                                static)
+    for seed in (1, 2):
+        bg = convert.from_u64(_rand(2, seed), dev)
+        static.copy_(bg)
+        graph.replay()
+        want = gf.prefix_prod_plain(ck.ctl_combine_plain(
+            trace, view.columns, view.filter_column, bg))
+        assert torch.equal(out, want)
+
+
+def test_ctl_combine_kernel_refuses_what_it_does_not_take(dev):
+    from olavm_tpu_torch.stark import ctl_kernels as ck
+    from olavm_tpu_torch.stark.cross_table_lookup import Column
+
+    trace = convert.from_u64(_rand((40, 8), 13), dev)
+    bank = convert.from_u64(_rand(2, 14), dev)
+    wide = [Column.single(c) for c in range(ck.MAX_SLOTS + 1)]
+    with pytest.raises(ValueError, match="ctl_combine.*columns"):
+        ck.ctl_combine(trace, wide, None, bank)
+    with pytest.raises(ValueError, match="past the trace"):
+        ck.ctl_combine(trace[:4], [Column.single(9)], None, bank)
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_fri_fold_kernel_at_2_24(dev, edge):
+    """N=94000's largest fold, 2^24 -> 2^20 at arity 16: one launch, equal
+    to the plain version and to the op-by-op chain it replaced."""
+    import chip_smoke
+    from olavm_tpu_torch.stark import fri_kernels as fk
+    from olavm_tpu_torch.stark import prover_device as tpd
+
+    rng = np.random.default_rng(24 + edge)
+    re, im, bpows = chip_smoke.fold_case(24, 16, rng, dev, edge)
+    before = kernels.LAUNCHES["fri_fold"]
+    got = tpd.fold_stacked(re, im, bpows)
+    assert kernels.LAUNCHES["fri_fold"] == before + 1
+    assert got.shape == (2, 1 << 20)
+    assert torch.equal(got, fk.fri_fold_plain(re, im, bpows))
+    assert torch.equal(got, fk.fri_fold_ops(re, im, bpows))
+
+
+@pytest.mark.parametrize("arity", [2, 4, 8, 16])
+@pytest.mark.parametrize("log_m", [4, 9, 18])
+def test_fri_fold_kernel_at_every_arity_and_on_slices(dev, arity, log_m):
+    import chip_smoke
+    from olavm_tpu_torch.stark import fri_kernels as fk
+
+    rng = np.random.default_rng(arity * 100 + log_m)
+    re, im, bpows = chip_smoke.fold_case(log_m, arity, rng, dev,
+                                         edge=log_m % 2 == 1)
+    whole = fk.fri_fold(re, im, bpows)
+    assert torch.equal(whole, fk.fri_fold_plain(re, im, bpows))
+    rows = (1 << log_m) // arity
+    for lo, hi in ((0, rows // 2), (rows // 2, rows), (1, rows - 1)):
+        part = fk.fri_fold(re[lo * arity:hi * arity],
+                           im[lo * arity:hi * arity], bpows)
+        assert torch.equal(part, whole[:, lo:hi]), (lo, hi)
+
+
+def test_fri_fold_kernel_refuses_what_it_does_not_take(dev):
+    import chip_smoke
+    from olavm_tpu_torch.stark import fri_kernels as fk
+
+    re, im, bpows = chip_smoke.fold_case(8, 16, np.random.default_rng(0), dev)
+    with pytest.raises(ValueError, match="aligned"):
+        fk.fri_fold(re[1:17], im[1:17], bpows)
+    with pytest.raises(ValueError, match="arity"):
+        fk.fri_fold(re, im, bpows[:, :3])
+    with pytest.raises(ValueError, match="arity"):
+        fk.fri_fold(re[:24], im[:24], bpows)
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP Queue 3, item 1: the lazy helpers and 160-bit sums that take terms
+# off, on the card against their g++ build
+# ---------------------------------------------------------------------------
+
+
+def test_lazy_helpers_and_subtracting_sums_agree_with_gxx(dev):
+    """goldilocks.cuh's lazy helpers on every pair of edge words, and sums
+    started at a multiple of p that take terms off (64-bit and 32-bit PTX
+    borrows, 64-bit compares) beside the added-and-subtracted form: the
+    card's words equal the g++ build's, and both Python's mod p."""
+    import chip_smoke
+
+    res = chip_smoke.check_lazy_sums(dev, np.random.default_rng(1))
+    assert res["card_vs_host"] == {} and res["host_vs_python"] == {}

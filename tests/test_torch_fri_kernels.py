@@ -1,6 +1,6 @@
-"""K9 (fri_combine) and K10 (fri_quotient), the FRI composition's two passes
-(csrc/fri.cu, stark/fri_kernels.py), on the CPU, exact throughout
-(tolerance 0: field arithmetic has one answer):
+"""K9 (fri_combine) and K10 (fri_quotient), the FRI composition's two passes,
+and K12 (fri_fold), the FRI fold (csrc/fri.cu, stark/fri_kernels.py), on
+the CPU, exact throughout (tolerance 0: field arithmetic has one answer):
 
 - the composition that the port runs (fri_composition: the plain K9, K1,
   the plain K10, K1 inverse and the coset scaling) equals the op-by-op
@@ -16,8 +16,13 @@
 - csrc/fri.cu built by g++ (the CUDA qualifiers stubbed, every thread of a
   launch run on the host) equals the plain versions at chip_smoke's
   EDGE_VALUES, at sizes that are not a multiple of a thread's columns or
-  points, and with a zero norm.
-On the card, tests/test_torch_cuda.py holds both kernels to their plain
+  points, and with a zero norm;
+- the fold's plain version at arity 2, 4, 8 and 16 equals the op-by-op
+  chain it replaced (fri_kernels.fri_fold_ops) and olavm_tpu's
+  fold_fn formula on its gfe (powers, products, a tree of sums), and K12
+  built by g++ equals it on a whole vector, on contiguous slices (a mesh
+  rank's rows) and past one output a thread.
+On the card, tests/test_torch_cuda.py holds the kernels to their plain
 versions and chip_smoke.py does so at the main path's shapes.
 """
 
@@ -31,6 +36,8 @@ import pytest
 import torch
 
 import chip_smoke
+from olavm_tpu.field import gf as jgf
+from olavm_tpu.field import gfe as jgfe
 from olavm_tpu_torch import kernels
 from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.field import goldilocks as g
@@ -56,7 +63,9 @@ def test_wrapper_limits_are_the_sources():
     assert (fk.MAX_ORACLES, fk.MAX_BATCHES, fk.MAX_SEGMENTS) == (
         K9K10["MAX_ORACLES"], K9K10["MAX_BATCHES"], K9K10["MAX_SEGMENTS"])
     assert "fri" in kernels.SOURCES
-    assert {"fri_combine", "fri_quotient"} <= set(kernels.LAUNCHES)
+    assert {"fri_combine", "fri_quotient", "fri_fold"} <= set(
+        kernels.LAUNCHES)
+    assert fk.FOLD_ARITIES == (2, 4, 8, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +196,7 @@ FRI_STUB = """
 struct HostDim { unsigned x; };
 static HostDim blockIdx, blockDim, threadIdx, gridDim;
 template <class T> static inline T __ldg(const T* p) { return *p; }
+struct alignas(16) ulonglong2 { unsigned long long x, y; };
 """
 
 # every (block, thread) of a launch of csrc/fri.cu's kernels, in turn
@@ -217,6 +227,19 @@ extern "C" void host_fri_combine(const void* plan, int batches,
   g_bank = bank; g_out = out; g_n = n; g_size = size; g_shift = shift;
   void (*run[])() = {combine<1>, combine<2>, combine<3>, combine<4>};
   grid(fri::combine_blocks(size), fri::COMBINE_THREADS, run[batches - 1]);
+}
+static const uint64_t *g_re, *g_im, *g_bpows;
+static int64_t g_m;
+template <int A> static void fold() {
+  fri::fold_kernel<A>(g_re, g_im, g_bpows, g_out, g_m);
+}
+extern "C" void host_fri_fold(const uint64_t* re, const uint64_t* im,
+                              const uint64_t* bpows, uint64_t* out, int64_t m,
+                              int arity) {
+  g_re = re; g_im = im; g_bpows = bpows; g_out = out; g_m = m;
+  void (*run)() = arity == 2 ? fold<2> : arity == 4 ? fold<4>
+                : arity == 8 ? fold<8> : fold<16>;
+  grid(fri::fold_blocks(m), fri::FOLD_THREADS, run);
 }
 extern "C" void host_fri_quotient(const void* plan, int batches,
                                   const uint64_t* values,
@@ -259,7 +282,9 @@ def fri_host(tmp_path_factory):
     lib.host_fri_combine.argtypes = [vp, ctypes.c_int, vp, vp, i64, i64, u64]
     lib.host_fri_quotient.argtypes = [vp, ctypes.c_int, vp, vp, vp, i64, u64,
                                       u64]
+    lib.host_fri_fold.argtypes = [vp, vp, vp, vp, i64, ctypes.c_int]
     lib.host_fri_combine.restype = lib.host_fri_quotient.restype = None
+    lib.host_fri_fold.restype = None
     return lib
 
 
@@ -323,3 +348,104 @@ def test_k10_built_by_gxx_equals_plain(fri_host, size, batches):
                                got.data_ptr(), size, shift, omega)
     assert torch.equal(got, fk.quotient_plain(values, bank, points, shift,
                                               omega))
+
+
+# ---------------------------------------------------------------------------
+# K12: the FRI fold
+# ---------------------------------------------------------------------------
+
+
+def _fold_case(m: int, arity: int, rng, edge: bool):
+    """(m,) re and im coefficients and beta's (2, arity) powers, from a
+    random beta, or EDGE_VALUES throughout."""
+    if edge:
+        re, im = (gf.from_u64(chip_smoke.edge_values(rng, m), "cpu")
+                  for _ in range(2))
+        beta = tuple(int(v) for v in chip_smoke.edge_values(rng, 2))
+    else:
+        re, im = (gf.from_u64(rng.integers(0, P, m, dtype=np.uint64), "cpu")
+                  for _ in range(2))
+        beta = tuple(int(v) for v in rng.integers(0, P, 2, dtype=np.uint64))
+    pws = [(1, 0)]
+    for _ in range(1, arity):
+        a, b = pws[-1]
+        pws.append(((a * beta[0] + 7 * b * beta[1]) % P,
+                    (a * beta[1] + b * beta[0]) % P))
+    bpows = gf.from_u64(np.asarray(pws, dtype=np.uint64).T.copy(), "cpu")
+    return re, im, beta, bpows
+
+
+def _olavm_tpu_fold(re, im, beta, arity: int) -> np.ndarray:
+    """olavm_tpu's fold_fn formula (olavm_tpu/stark/prover_device.py:887):
+    each coefficient times its power of beta (gfe.powers), a tree of
+    sums."""
+    r = gf.to_u64(re).reshape(-1, arity)
+    q = gf.to_u64(im).reshape(-1, arity)
+    bp = jgfe.powers(jgfe.from_u64_pair(np.asarray(beta, dtype=np.uint64)),
+                     arity)
+    terms = [jgfe.mul(jgfe.GFE(jgf.from_u64(r[:, i].copy()),
+                               jgf.from_u64(q[:, i].copy())), bp[i])
+             for i in range(arity)]
+    while len(terms) > 1:
+        nxt = [jgfe.add(terms[j], terms[j + 1])
+               for j in range(0, len(terms) - 1, 2)]
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return jgfe.to_u64_pair(terms[0]).T
+
+
+@pytest.mark.parametrize("arity", [2, 4, 8, 16])
+@pytest.mark.parametrize("edge", [False, True])
+def test_fold_plain_equals_the_chain_and_olavm_tpu(arity, edge):
+    rng = np.random.default_rng(arity + 100 * edge)
+    re, im, beta, bpows = _fold_case(arity * 37, arity, rng, edge)
+    got = fk.fri_fold_plain(re, im, bpows)
+    assert got.shape == (2, 37)
+    assert torch.equal(got, fk.fri_fold_ops(re, im, bpows))
+    np.testing.assert_array_equal(gf.to_u64(got),
+                                  _olavm_tpu_fold(re, im, beta, arity))
+
+
+def test_fold_wrapper_takes_the_plain_version_on_the_cpu():
+    rng = np.random.default_rng(12)
+    re, im, _, bpows = _fold_case(16 * 8, 16, rng, False)
+    kernels.reset_launches()
+    assert torch.equal(tpd.fold_stacked(re, im, bpows),
+                       fk.fri_fold_plain(re, im, bpows))
+    assert kernels.LAUNCHES["fri_fold"] == 0
+
+
+def _fold_host(lib, re, im, bpows):
+    arity = bpows.shape[1]
+    m = re.shape[0] // arity
+    out = torch.full((2, m), -1, dtype=torch.int64)
+    lib.host_fri_fold(re.data_ptr(), im.data_ptr(), bpows.data_ptr(),
+                      out.data_ptr(), m, arity)
+    return out
+
+
+# m not a multiple of a block's outputs (FOLD_THREADS = 128), and past one
+# output a thread (FOLD_MAX_BLOCKS x FOLD_THREADS = 135,168)
+@pytest.mark.parametrize("arity,m", [(2, 1), (4, 3), (8, 129), (16, 1000),
+                                     (2, 135_168 + 5)])
+def test_k12_built_by_gxx_equals_plain(fri_host, arity, m):
+    rng = np.random.default_rng(m + arity)
+    for edge in (False, True):
+        re, im, _, bpows = _fold_case(m * arity, arity, rng, edge)
+        assert torch.equal(_fold_host(fri_host, re, im, bpows),
+                           fk.fri_fold_plain(re, im, bpows)), edge
+
+
+@pytest.mark.parametrize("arity", [2, 16])
+def test_k12_built_by_gxx_on_contiguous_slices(fri_host, arity):
+    """A mesh rank folds its rows [lo, hi) of the coefficients: a slice
+    that starts past the vector's start."""
+    rng = np.random.default_rng(arity)
+    m = 300
+    re, im, _, bpows = _fold_case(m * arity, arity, rng, True)
+    whole = fk.fri_fold_plain(re, im, bpows)
+    for lo, hi in ((0, 150), (150, 300), (7, 8), (33, 290)):
+        part = _fold_host(fri_host, re[lo * arity:hi * arity],
+                          im[lo * arity:hi * arity], bpows)
+        assert torch.equal(part, whole[:, lo:hi]), (lo, hi)
