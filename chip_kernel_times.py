@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the NTT (K1), Poseidon, absorb, evaluation (K5), inversion (K7),
-scan (K8), FRI composition (K9, K10), CTL row combination (K11) and FRI
-fold (K12) kernels of this checkout at the main path's shapes, and count
-the SASS instructions of their kernels.
+scan (K8), FRI composition (K9, K10), CTL row combination (K11), FRI
+fold (K12) and power table (K13) kernels of this checkout at the main
+path's shapes, and count the SASS instructions of their kernels.
 
     python3 chip_kernel_times.py                    # all; one CUDA card, nvcc
     python3 chip_kernel_times.py --kernel poseidon  # libposeidon's kernels only
@@ -14,6 +14,7 @@ the SASS instructions of their kernels.
     python3 chip_kernel_times.py --kernel fri       # K9, K10: FRI composition
     python3 chip_kernel_times.py --kernel ctl       # K11: CTL row combination
     python3 chip_kernel_times.py --kernel fold      # K12: the FRI fold
+    python3 chip_kernel_times.py --kernel powers    # K13: power tables
 
 Builds each kernel's source in olavm_tpu_torch/csrc, times it with CUDA events
 after a warm-up (chip_smoke.cuda_ms), and prints one JSON object per source
@@ -63,6 +64,20 @@ bound (chip_smoke.ctl_combine_bound, fri_fold_bound) and its share,
 whether it equals its plain version, and the device ms and launches of the
 op-by-op chain each replaced on the same inputs (ctl_kernels.
 ctl_combine_ops; fri_kernels.fri_fold_ops).
+For `fri`, "k10" also gives each instantiation of K10 (gl_fri_quotient's
+quotient_kernel<B>) its ptxas registers and spills, its SASS instructions
+and loops, and `sass_per_point`: the instructions a thread runs (each loop
+of PAIR_LOOP_MIN instructions or more, a pass over the pairs of points,
+counted QUOTIENT_PAIRS times where fri.cu has QUOTIENT_PAIRS; shorter
+loops once; the whole unrolled kernel where it has QUOTIENT_CHUNK) over
+the points a thread takes.
+For `powers`, "rows" holds K13 at every table degree of an N=94000 prove
+and N=376000's largest (chip_smoke.POWERS_NS): the extension table (the
+openings' extpows programs) and the base field's (28, n) query-point rows:
+CUDA-event ms, device ms, the bound (chip_smoke.powers_bound) and its
+share, whether it equals its plain version, and the device ms and launches
+of the log-doubling chain it replaced (chip_smoke.ext_powers_chain,
+base_powers_chain) on the same inputs.
 `sass` holds, for every __global__ function of the built library, its
 instruction count (cuobjdump -sass, NOPs left out) and each loop's span and
 count (a branch back to an earlier address); and, under
@@ -125,6 +140,8 @@ SHAPES = {
     # kernel takes
     "fold": ((24, 16), (23, 16), (22, 16), (20, 16), (16, 16), (12, 16),
              (24, 2), (24, 4), (24, 8)),
+    # K13: the table degrees of N=94000 and N=376000 (chip_smoke.POWERS_NS)
+    "powers": None,
 }
 # the csrc sources that hold each choice's kernels
 LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
@@ -132,7 +149,8 @@ LIBS = {"ntt": ("ntt",), "poseidon": ("poseidon",),
         "quotient": ("gf_mul", "ntt", "quotient"),
         "inv": ("gf_inv", "gf_mul"), "scan": ("scan", "gf_mul"),
         "fri": ("fri", "ntt", "quotient", "gf_mul", "gf_inv"),
-        "ctl": ("ctl", "gf_mul"), "fold": ("fri", "gf_mul")}
+        "ctl": ("ctl", "gf_mul"), "fold": ("fri", "gf_mul"),
+        "powers": ("powers", "gf_mul")}
 # libposeidon's Merkle kernels: leaves as (C, n) columns (the CpuStark LDE,
 # the FRI trees' arity-16 extension leaves, one permutation per leaf) and
 # tree levels of n digests
@@ -156,6 +174,12 @@ PROBE(probe_mul_wide, const gl::u128 w = gl::mul_wide(x, y);
 PROBE(probe_mul, o[2 * i] = gl::mul(x, y); o[2 * i + 1] = y;)
 """
 
+# SASS instructions from which a loop of K10 is taken for a loop over its
+# pairs of points
+PAIR_LOOP_MIN = 200
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_REGS = re.compile(r"Used (\d+) registers")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _INSTR = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?);")
 _FUNC = re.compile(r"^\s+Function : (\S+)")
 _BRA = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
@@ -226,6 +250,54 @@ def product_counts(csrc: str) -> dict | None:
     return {k.removeprefix("probe_"): v - base for k, v in counts.items()}
 
 
+def ptxas_entries(log: str) -> dict:
+    """{entry: {"registers", "spill_stores", "spill_loads"}} of a ptxas -v
+    log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = _REGS.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = _SPILLS.search(line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+    return out
+
+
+def k10_counts(sass: dict, log: str, fri_source: str) -> dict:
+    """K10's instantiations: ptxas registers and spills, SASS instructions
+    and loops, and the instructions a thread runs a point (module
+    docstring)."""
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", fri_source)}
+    if "QUOTIENT_PAIRS" in consts:
+        trips, points = consts["QUOTIENT_PAIRS"], 2 * consts["QUOTIENT_PAIRS"]
+    else:
+        trips, points = 1, consts["QUOTIENT_CHUNK"]
+    regs = ptxas_entries(log)
+    out = {}
+    for name, st in sass.items():
+        if "quotient_kernel" not in name:
+            continue
+        # the pair loops hold a point's body (hundreds of instructions);
+        # a short loop (a squaring chain) is counted once
+        run = st["instructions"] + sum(n * (trips - 1)
+                                       for _, _, n in st["loops"]
+                                       if n >= PAIR_LOOP_MIN)
+        out[name] = {**regs.get(name, {}), "instructions": st["instructions"],
+                     "loops": st["loops"], "points_per_thread": points,
+                     "sass_per_point": run / points}
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import argparse
@@ -263,6 +335,10 @@ def main() -> int:
                                  for k, v in counts[lib].items()},
                      "products": products},
             **time_kernel(name, chip_smoke.cuda_ms)}
+        if name == "fri":
+            result["k10"] = k10_counts(
+                counts["fri"], kernels.BUILD_LOG["fri"],
+                (kernels.CSRC / "fri.cu").read_text())
         print(json.dumps(result))
     return 0
 
@@ -289,6 +365,8 @@ def time_kernel(kernel: str, cuda_ms) -> dict:
         return time_fri(cuda_ms)
     if kernel in ("ctl", "fold"):
         return time_ctl_fold(kernel, cuda_ms)
+    if kernel == "powers":
+        return time_powers(gen, cuda_ms)
     if kernel == "ntt":
         from olavm_tpu_torch.ntt import ntt as dntt
 
@@ -514,6 +592,51 @@ def time_ctl_fold(kernel: str, cuda_ms) -> dict:
         print(json.dumps({kernel: shape, **rows[shape]}), flush=True)
     del cases
     torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def time_powers(gen, cuda_ms) -> dict:
+    """{"rows": {shape: {"ms", "device_ms", "bound_ms", "bound_by", "share",
+    "plain_equal", "launches", "chain_device_ms", "chain_launches"}}} for
+    K13 at chip_smoke.POWERS_NS, both fields."""
+    import torch
+
+    import chip_smoke
+    from olavm_tpu_torch import kernels
+    from olavm_tpu_torch.field import gf, gfe
+
+    def launches(call):
+        kernels.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        return sum(kernels.LAUNCHES.values())
+
+    rows = {}
+    k = chip_smoke.QUERY_ROUNDS
+    for n in chip_smoke.POWERS_NS:
+        zb = torch.randint(0, 1 << 62, (2,), generator=gen, device="cuda")
+        bases = torch.randint(0, 1 << 62, (k,), generator=gen, device="cuda")
+        z = gfe.GFE(zb[0], zb[1])
+        for shape, call, plain, chain, least in (
+                (f"ext {_log2(n)}", lambda: gfe.powers_stacked(z, n),
+                 lambda: torch.stack(list(gfe.powers_plain(z, n))),
+                 lambda: chip_smoke.ext_powers_chain(zb, n),
+                 chip_smoke.powers_bound(1, n, ext=True)),
+                (f"base {k}x{_log2(n)}", lambda: gf.powers(bases, n),
+                 lambda: gf.powers_plain(bases, n),
+                 lambda: chip_smoke.base_powers_chain(bases, n),
+                 chip_smoke.powers_bound(k, n))):
+            reps = 50 if n >= 1 << 17 else 200
+            dev_ms = chip_smoke.device_ms(call, reps)
+            rows[shape] = {
+                "ms": cuda_ms(call, reps), "device_ms": dev_ms,
+                "bound_ms": least["bound_ms"], "bound_by": least["bound_by"],
+                "share": least["bound_ms"] / dev_ms,
+                "plain_equal": torch.equal(call(), plain()),
+                "launches": launches(call),
+                "chain_device_ms": chip_smoke.device_ms(chain, 3),
+                "chain_launches": launches(chain)}
+        torch.cuda.empty_cache()
     return {"rows": rows}
 
 

@@ -26,7 +26,12 @@ reserved (the graphs' shared pool is reserved memory that allocations
 outside the graphs cannot use, so the reserved peak is given beside the
 allocated one), with the programs' buffers and pool, the allocator's
 cudaMalloc calls (`device_allocs`) and the host seconds of the prove's
-top-level scopes (`scopes_seconds`, the tables' summed). Prints one JSON object
+top-level scopes (`scopes_seconds`, the tables' summed). In each warm
+prove it counts the calls that synchronise the host with the card (a
+pageable copy, `.item()`, `bool()` of a device tensor, ...: PyTorch's sync
+debug mode set to "warn", its warnings caught), in all and by call site
+(the innermost two frames of the port's code, `sync_sites`); the hook
+costs a stack walk a synchronising call. Prints one JSON object
 as the last line and writes the same, with the kernel tables, to
 chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon).
 
@@ -36,8 +41,11 @@ tag (`ctlz`, `permz`, `qclass`, `extpows`, `fricomp`, `frifold`,
 of the runtime call that launched it (a kernel launch, or the graph launch
 of a replay), to the range around that call, or to "host" (issued by the
 host outside any program). Per tag it gives, by kernel class (K3, add,
-sub, cat, fill, K7, K8, K9, K10, K11, K12, the rest), the launches and
-device milliseconds.
+sub, cat, fill, K7, K8, K9, K10, K11, K12, K13 in both fields, the coset
+scaling, K1, the rest), the launches and device milliseconds;
+`split_summary` repeats the openings' power tables (`extpows`), the FRI
+re-FFTs (`fri_refft`) and the K3 launches the host issued outside any
+program.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import statistics
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOP_KERNELS = 25
@@ -67,8 +76,26 @@ KERNEL_CLASSES = (
     ("fri_quotient", re.compile(r"fri::quotient_kernel")),
     ("ctl_combine", re.compile(r"ctl::combine_kernel")),
     ("fri_fold", re.compile(r"fri::fold_kernel")),
+    ("powers", re.compile(r"powers::base_kernel")),
+    ("ext_powers", re.compile(r"powers::ext_kernel")),
+    ("scale_powers", re.compile(r"scale_powers_kernel")),
+    ("ntt", re.compile(r"ntt::")),
 )
 PROGRAM_RANGE = "program:"
+PORT = os.sep + "olavm_tpu_torch" + os.sep
+
+
+def sync_site(frame) -> str:
+    """The innermost two frames of the port's code above `frame`, as
+    "file:line function" joined by " < "."""
+    sites = []
+    while frame is not None and len(sites) < 2:
+        path = frame.f_code.co_filename
+        if PORT in path:
+            sites.append(f"{path.split(PORT, 1)[1]}:{frame.f_lineno} "
+                         f"{frame.f_code.co_name}")
+        frame = frame.f_back
+    return " < ".join(sites) or "outside the port"
 
 
 def kernel_class(name: str) -> str:
@@ -170,7 +197,7 @@ def main() -> int:
     k6_build_seconds = time.perf_counter() - t0
     device = torch.device("cuda", 0)
 
-    def prove(programs: bool) -> dict:
+    def prove(programs: bool, count_syncs: bool = False) -> dict:
         before = jitcache.stats()
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -178,11 +205,26 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         allocs = torch.cuda.memory_stats(device).get("num_device_alloc", 0)
         timing = TimingTree()
-        t0 = time.perf_counter()
-        proof = prove_with_traces_device(ola, config, traces,
-                                         public_values=public_values,
-                                         timing=timing, device=device,
-                                         programs=programs)
+        syncs: dict = {}
+
+        def seen(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing" in str(message):
+                site = sync_site(sys._getframe(1))
+                syncs[site] = syncs.get(site, 0) + 1
+
+        with warnings.catch_warnings():
+            if count_syncs:
+                warnings.simplefilter("always")
+                warnings.showwarning = seen
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                proof = prove_with_traces_device(ola, config, traces,
+                                                 public_values=public_values,
+                                                 timing=timing, device=device,
+                                                 programs=programs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         scopes: dict = {}
@@ -195,6 +237,9 @@ def main() -> int:
         run = {
             "programs": programs, "seconds": seconds,
             "host_issued_launches": host,
+            "host_issued_k3": kernels.HOST_LAUNCHES["gf_mul"],
+            "sync_calls": sum(syncs.values()) if count_syncs else None,
+            "sync_sites": dict(sorted(syncs.items(), key=lambda kv: -kv[1])),
             "replayed_launches": sum(kernels.LAUNCHES.values()) - host,
             "launches": dict(kernels.LAUNCHES),
             # the quotient's programs: launches their replays ran, and of
@@ -221,7 +266,7 @@ def main() -> int:
 
     runs = [prove(False), prove(True)]  # cold; the capture
     for programs in (False, True, True, False):
-        runs.append(prove(programs))
+        runs.append(prove(programs, count_syncs=True))
 
     traced = {}
     for programs in (False, True):
@@ -289,6 +334,9 @@ def main() -> int:
             "busy_share_warm": [device_seconds / max(seconds),
                                 device_seconds / min(seconds)],
             "host_issued_launches": [r["host_issued_launches"] for r in warm],
+            "host_issued_k3": [r["host_issued_k3"] for r in warm],
+            "sync_calls": [r["sync_calls"] for r in warm],
+            "sync_sites": warm[-1]["sync_sites"],
             "launches": [sum(r["launches"].values()) for r in warm],
             "quotient_replayed_launches": [r["quotient_replayed_launches"]
                                            for r in warm],
@@ -300,6 +348,10 @@ def main() -> int:
             "scopes_seconds": [r["scopes_seconds"] for r in warm],
         }
     result["program_split"] = split
+    result["split_summary"] = {
+        **{tag: split.get(tag, {}).get("all") for tag in ("extpows",
+                                                          "fri_refft")},
+        "host_k3": split.get("host", {}).get("gf_mul")}
     result["cold_eager_peak_memory_bytes"] = runs[0]["peak_memory_bytes"]
     result["cold_eager_peak_reserved_bytes"] = runs[0]["peak_reserved_bytes"]
     result["program_memory_bytes"] = runs[-1]["program_memory_bytes"]

@@ -42,7 +42,11 @@ without printing a result:
    p - 1) and on a view without columns; K12, the FRI fold, at 2^24 and
    2^20 by 16, at every arity on edge values and on a slice that starts
    past the vector's start (a mesh rank's rows); each timed beside the
-   op-by-op chain it replaced; and ROADMAP Queue 3, item 1: goldilocks.cuh's
+   op-by-op chain it replaced; K13, power tables, in the extension at
+   every table degree of an N=94000 prove, N=376000's largest and ragged
+   lengths, for every edge base, and in the base field as the query
+   points' (28, n) rows and on one base, timed at 2^21 beside the
+   log-doubling chain it replaced; and ROADMAP Queue 3, item 1: goldilocks.cuh's
    lazy helpers on every pair of edge words, and 160-bit sums started at
    a multiple of p that take terms off (LAZY_SOURCE), built by nvcc and
    run on the card, word for word against the same source built by g++
@@ -107,14 +111,17 @@ kernel's launch count is reset just before it and read just after it (in
 the rank's own process), counting the launches the host issued and those
 that graph replays ran (each capture records its graph's launches, and
 each replay adds them); the run must have launched its
-hasher's kernels (K1, K2, K3, add, sub, K5, K6 with the coset scaling and
-selector kernels, K7 in the base field, K8, K9, K10, K11, K12, and the
-hasher's leaf, absorb and level kernels), none of the other hasher's and
-no K7 in the extension, no K3, add or sub inside a quotient, CTL Z or FRI
-fold program, none of those or K7 inside a FRI composition program, no
-plain inversion, scan, composition pass, CTL row combination or fold on a
-CUDA tensor (the chains K7-K12 replaced refuse one during the prove), and
-its leaf and absorb
+hasher's kernels (K1, K2, K3, add, K5, K6 with the coset scaling and
+selector kernels, K7 in the base field, K8, K9, K10, K11, K12, K13 in both
+fields, and the hasher's leaf, absorb and level kernels), none of the other
+hasher's, no K7 in the extension and no sub kernel, no K3, add or sub
+inside a quotient, CTL Z or FRI fold program, none of those or K7 inside a FRI composition program, no
+plain inversion, scan, composition pass, CTL row combination, fold or
+log-doubling power table on a CUDA tensor (the chains K7-K13 replaced
+refuse one during the prove), no gf.power_rows outside ntt.twiddles, no
+graph node of an openings' power table (extpows) or FRI re-FFT
+(fri_refft) program but its kernels (K13; gl_scale_powers and K1) and its
+outputs' copies (so no K3, add, sub, cat or fill), and its leaf and absorb
 kernels as often as its commits' shapes need. Each records prove and verify seconds
 (a group verifies on rank 0), peak device memory and the host's peak
 resident memory.
@@ -133,6 +140,7 @@ chip_smoke_out/report.json.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import hashlib
 import json
@@ -149,6 +157,7 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 REPORT_DIR = os.path.join(ROOT, "chip_smoke_out")
 FULL_N = 94000  # 1,034,005 steps -> 2^20 CPU rows
 SEED = 0  # random kernel inputs
+_P, _EPSILON = 0xFFFFFFFF00000001, 0xFFFFFFFF  # Goldilocks p, 2^64 mod p
 # lanes at which the plain Poseidon Merkle versions are timed: at the full
 # 2^23 they would need (12, 12, 2^23) int64 temporaries (9.7 GB each)
 PLAIN_N = 1 << 16
@@ -1912,6 +1921,147 @@ def check_ctl_fold_kernels(device, rng) -> dict:
     return results
 
 
+# K13 (csrc/powers.cu), power tables: the degrees of an N=94000 prove's
+# tables (the openings' extension tables, and the query points' (28, n)
+# base-field rows, one row a query round) and N=376000's largest, ragged
+# lengths around a lane's run and a block's points, and the edge bases
+POWERS_NS = (2, 4, 256, 1024, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21,
+             1 << 22)
+POWERS_RAGGED = (1, 3, 31, 33, 4095, 4097, 2 * 4096 + 5)
+POWERS_EDGE = (0, 1, _P - 1, 1 << 32, _EPSILON, 1234567890123456789 % _P)
+EXT_POWERS_EDGE = ((0, 0), (1, 0), (_P - 1, 0), (1 << 32, 0), (0, 1),
+                   (0, _P - 1), (123456789, _P - 5), (_P - 1, _P - 1))
+QUERY_ROUNDS = 28
+POWERS_TIMED = 1 << 21  # ProgramStark's degree, the largest at N=94000
+
+
+def powers_bound(rows: int, n: int, ext: bool = False) -> dict:
+    """K13's least time: the table written (8 bytes a point, 16 in the
+    extension) and one product a point (in the extension two sums of two
+    unreduced products, with the step's im part times 7 made once)."""
+    if ext:
+        return bound(16 * n + 16, n * (4 * (OPS_PRODUCT + OPS_ACCUMULATE)
+                                       + 2 * OPS_REDUCE_WIDE),
+                     n * 4 * MUL_PRODUCT)
+    return bound(8 * rows * (n + 1), rows * n * OPS_MUL,
+                 rows * n * MUL_PRODUCT)
+
+
+def ext_powers_chain(zb, n: int):
+    """The extpows program before K13 (op by op: gfe.mul's K3, add and sub
+    launches, two cats and a squaring a doubling step): the yardstick."""
+    import torch
+
+    from olavm_tpu_torch.field import gfe
+
+    out = gfe.ones((1,), zb.device)
+    zm, length = gfe.GFE(zb[0], zb[1]), 1
+    while length < n:
+        step = min(length, n - length)
+        nxt = gfe.mul(out[:step], zm)
+        out = gfe.GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
+        length += step
+        if length < n:
+            zm = gfe.mul(zm, zm)
+    return torch.stack([out.re, out.im])
+
+
+def base_powers_chain(bases, n: int):
+    """(k, n) tables of (k,) bases as gf.powers made them before K13 (op by
+    op: a K3 launch, a cat and a squaring a doubling step): the yardstick."""
+    import torch
+
+    from olavm_tpu_torch.field import gf
+
+    out = gf.ones((bases.shape[0], 1), bases.device)
+    bm, length = bases[:, None], 1
+    while length < n:
+        step = min(length, n - length)
+        out = torch.cat([out, gf.mul(out[:, :step], bm)], dim=1)
+        length += step
+        if length < n:
+            bm = gf.square(bm)
+    return out
+
+
+def check_powers_kernels(device, rng) -> dict:
+    """K13 (gf.powers, gfe.powers_stacked) against its plain versions,
+    exactly: the extension table of every edge base and a random one at
+    every POWERS_NS and POWERS_RAGGED length, the base field's (28, n) rows
+    of the query points (random bases, the edge bases among them) and a
+    host int (a 0-dim tensor) at the same lengths; each timed by CUDA events at
+    POWERS_TIMED beside the log-doubling chain it replaced (the extension's
+    on gfe.mul, the base field's on gf.mul)."""
+    import numpy as np
+    import torch
+
+    from olavm_tpu_torch.field import gf, gfe
+
+    results = {"powers": {"max_abs_err": 0}, "ext_powers": {"max_abs_err": 0}}
+
+    def err(name, a, b):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           max_abs_err(a, b))
+
+    bases = np.concatenate([np.asarray(POWERS_EDGE, dtype=np.uint64),
+                            rng.integers(0, _P, QUERY_ROUNDS
+                                         - len(POWERS_EDGE), dtype=np.uint64)])
+    rows = gf.from_u64(bases, device)
+    ext_bases = [*EXT_POWERS_EDGE,
+                 tuple(int(v) for v in rng.integers(0, _P, 2,
+                                                    dtype=np.uint64))]
+    for n in (*POWERS_RAGGED, *POWERS_NS):
+        for b in ext_bases:
+            base = gfe.from_u64_pair(np.asarray(b, dtype=np.uint64), device)
+            want = gfe.powers_plain(base, n)
+            err("ext_powers", gfe.powers_stacked(base, n),
+                torch.stack([want.re, want.im]))
+        if n <= POWERS_TIMED:
+            err("powers", gf.powers(rows, n), gf.powers_plain(rows, n))
+        err("powers", gf.powers(int(bases[2]), n, device),
+            gf.powers_plain(rows[2], n))
+        torch.cuda.empty_cache()
+    n = POWERS_TIMED
+    zb = gf.from_u64(list(ext_bases[-1]), device)
+    cases = {
+        "powers": (lambda: gf.powers(rows, n), lambda: gf.powers_plain(rows, n),
+                   lambda: base_powers_chain(rows, n),
+                   powers_bound(QUERY_ROUNDS, n),
+                   f"({QUERY_ROUNDS}, 2^{n.bit_length() - 1})"),
+        "ext_powers": (lambda: gfe.powers_stacked(gfe.GFE(zb[0], zb[1]), n),
+                       lambda: gfe.powers_plain(gfe.GFE(zb[0], zb[1]), n),
+                       lambda: ext_powers_chain(zb, n),
+                       powers_bound(1, n, ext=True),
+                       f"2^{n.bit_length() - 1}")}
+    checked = (f"every edge base and a random one at n in {POWERS_RAGGED} "
+               f"and {POWERS_NS}, the base field as ({QUERY_ROUNDS}, n) rows "
+               f"and one host int")
+    for name, (call, plain, chain, least, shape) in cases.items():
+        ms = cuda_ms(call, 50)
+        plain_ms = cuda_ms(plain, 2)
+        chain_ms = cuda_ms(chain, 2)
+        results[name].update({"ms": ms, "plain_ms": plain_ms,
+                              "chain_ms": chain_ms, **least,
+                              "library_ms": None,
+                              "checked": f"{checked}; times at {shape}"})
+        e = results[name]["max_abs_err"]
+        log(f"  {name}: max_abs_err={e} kernel {ms:.4f} ms at {shape}, "
+            f"plain {plain_ms:.4f} ms, the log-doubling chain on the "
+            f"kernels {chain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({least['bound_ms'] / ms:.0%}; {checked})")
+        if e != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    big = 1 << 22
+    results["ext_powers"]["ms_2^22"] = cuda_ms(
+        lambda: gfe.powers_stacked(gfe.GFE(zb[0], zb[1]), big), 20)
+    results["ext_powers"]["bound_ms_2^22"] = powers_bound(
+        1, big, ext=True)["bound_ms"]
+    log(f"  ext_powers at 2^22: {results['ext_powers']['ms_2^22']:.4f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
@@ -2077,16 +2227,20 @@ def prove_and_verify(prepared, device, merkle_hasher: str):
 
 @contextlib.contextmanager
 def plain_chains_refused():
-    """Within it, the plain versions that K7-K12 replaced on the main path
+    """Within it, the plain versions that K7-K13 replaced on the main path
     (the exp_const chain of inversion, gf.inv_plain, gfe.inv_plain, the
     Hillis-Steele gf.prefix_prod_plain, the FRI composition's
     fri_combine_plain and fri_quotient_plain, the CTL Z's
-    ctl_combine_plain and the fold's fri_fold_plain) raise when given a
+    ctl_combine_plain, the fold's fri_fold_plain and the log-doubling
+    power tables gf.powers_plain and gfe.powers_plain) raise when given a
     CUDA tensor: on the card every inversion, scan, composition, CTL row
-    combination and fold must take its kernel."""
+    combination, fold and power table must take its kernel; and
+    gf.power_rows (a log-doubling table with a host copy a step) raises
+    unless ntt.twiddles calls it."""
     import torch
 
     from olavm_tpu_torch.field import gf, gfe
+    from olavm_tpu_torch.ntt import ntt as dntt
     from olavm_tpu_torch.stark import ctl_kernels as ck
     from olavm_tpu_torch.stark import fri_kernels as fk
 
@@ -2100,13 +2254,23 @@ def plain_chains_refused():
             return fn(*args, **kwargs)
         return guarded
 
+    def twiddles_only(fn):
+        def guarded(*args, **kwargs):
+            if sys._getframe(1).f_code is not dntt.twiddles.__code__:
+                raise AssertionError("gf.power_rows ran outside ntt.twiddles "
+                                     "on the main path")
+            return fn(*args, **kwargs)
+        return guarded
+
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (gf, "exp_const"), (gf, "inv_plain"), (gfe, "inv_plain"),
         (gf, "prefix_prod_plain"), (fk, "fri_combine_plain"),
         (fk, "fri_quotient_plain"), (ck, "ctl_combine_plain"),
-        (fk, "fri_fold_plain"))]
+        (fk, "fri_fold_plain"), (gf, "powers_plain"), (gfe, "powers_plain"),
+        (gf, "power_rows"))]
     for mod, name, fn in saved:
-        setattr(mod, name, refuse(f"{mod.__name__}.{name}", fn))
+        setattr(mod, name, twiddles_only(fn) if name == "power_rows"
+                else refuse(f"{mod.__name__}.{name}", fn))
     try:
         yield
     finally:
@@ -2141,6 +2305,19 @@ def program_counts(before: dict, after: dict) -> dict:
             if v:
                 by_kernel[k] = by_kernel.get(k, 0) + v
     return out
+
+
+def kernel_nodes(key: str, launched: dict) -> int:
+    """The graph nodes that a program's counted launches make: one a
+    launch, and K1's passes for each transform (the transform's size the
+    key's second entry, as in the fri_refft key)."""
+    from olavm_tpu_torch import kernels
+
+    nodes = sum(v for k, v in launched.items() if k != "ntt")
+    if launched.get("ntt"):
+        log_n = ast.literal_eval(key)[1].bit_length() - 1
+        nodes += launched["ntt"] * kernels.lib("ntt").gl_ntt_passes(log_n)
+    return nodes
 
 
 def program_summary() -> dict:
@@ -2280,11 +2457,14 @@ def cli_path(workdir: str) -> dict:
 
 
 # the kernels of each full-size path: each must launch on its own path, and
-# the other Merkle hasher's kernels must not
-SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "gf_sub",
-                  "eval_points", "constraints", "scale_powers",
-                  "quotient_selectors", "gf_inv", "prefix_prod",
-                  "fri_combine", "fri_quotient", "ctl_combine", "fri_fold")
+# the other Merkle hasher's kernels must not, nor the sub kernel (its last
+# launches on the path, the openings' power tables' extension products,
+# went to K13)
+SHARED_KERNELS = ("ntt", "poseidon", "gf_mul", "gf_add", "eval_points",
+                  "constraints", "scale_powers", "quotient_selectors",
+                  "gf_inv", "prefix_prod",
+                  "fri_combine", "fri_quotient", "ctl_combine", "fri_fold",
+                  "powers", "ext_powers")
 # kernels that the quotient's programs must not launch: K6 and its fixed
 # kernels took their place
 NOT_IN_QUOTIENT = ("gf_mul", "gf_add", "gf_sub")
@@ -2295,6 +2475,13 @@ NOT_IN_FRICOMP = ("gf_mul", "gf_add", "gf_sub", "gf_ext_inv")
 # took their place
 NOT_IN_CTLZ = ("gf_mul", "gf_add", "gf_sub")
 NOT_IN_FRIFOLD = ("gf_mul", "gf_add", "gf_sub")
+# what the openings' power tables and the FRI re-FFTs launch, all of it
+# (K13 took the place of a K3, cat and squaring chain; the re-FFT's coset
+# scaling is gl_scale_powers with no power table): a graph of these
+# programs holds those launches and its outputs' copies and no other node
+# (a cat, a fill or a copy would be one)
+PROGRAM_KERNELS = {"extpows": {"ext_powers": 1},
+                   "fri_refft": {"scale_powers": 1, "ntt": 1}}
 PATH_KERNELS = {
     "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level",
                                 "blake3_absorb"),
@@ -2326,7 +2513,6 @@ QUOTIENT_SHAPES = tuple((t, n) for t, (n, _) in enumerate(K5_TABLES)) + (
 
 # canonical values at the edges of K6's lazy arithmetic: (p - 1) + EPSILON
 # is 2^64 - 1, 0 - (p - 1) borrows, (p - 1)^2 is the largest product
-_P, _EPSILON = 0xFFFFFFFF00000001, 0xFFFFFFFF
 EDGE_VALUES = (0, 1, 2, _P - 1, _P - 2, 1 << 32, _EPSILON, (1 << 32) + 1,
                1 << 63, _P - _EPSILON)
 
@@ -2568,6 +2754,10 @@ KERNELS = (
      "olavm_tpu/stark/ctl_device.py:62", ("ctl_combine",)),
     ("fri_fold", "cuda", "olavm_tpu_torch/csrc/fri.cu",
      "olavm_tpu/stark/prover_device.py:887", ("fri_fold",)),
+    ("powers", "cuda", "olavm_tpu_torch/csrc/powers.cu",
+     "olavm_tpu/field/gf.py:275", ("powers",)),
+    ("ext_powers", "cuda", "olavm_tpu_torch/csrc/powers.cu",
+     "olavm_tpu/field/gfe.py:94", ("ext_powers",)),
 )
 
 
@@ -2631,6 +2821,7 @@ def run() -> int:
     report["kernels"].update(check_inv_scan_kernels(device, rng))
     report["kernels"].update(check_fri_kernels(device, rng))
     report["kernels"].update(check_ctl_fold_kernels(device, rng))
+    report["kernels"].update(check_powers_kernels(device, rng))
     report["lazy_sums"] = check_lazy_sums(device, rng)
     torch.cuda.empty_cache()
 
@@ -2664,6 +2855,15 @@ def run() -> int:
             if stray:
                 raise AssertionError(f"{label}: {tag} programs launch "
                                      f"{refused}: {stray}")
+        for key, st in jitcache.stats().items():
+            want = PROGRAM_KERNELS.get(st["tag"])
+            if want is not None and st["nodes"] and (
+                    st["kernels"] != want or st["nodes"]
+                    != kernel_nodes(key, st["kernels"]) + st["outputs"]):
+                raise AssertionError(
+                    f"{label}: program {key} launches {st['kernels']} in "
+                    f"{st['nodes']} graph nodes with {st['outputs']} "
+                    f"outputs, not {want} and their copies")
         rep["host_peak_resident_bytes"] = host_peak_resident()
         rep["merkle_hashing"] = check_path_launches(
             launches, hasher, prepared[2], rep["table_shapes"])

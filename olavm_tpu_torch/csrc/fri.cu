@@ -33,23 +33,34 @@
 // K10 gl_fri_quotient: for each point i of the coset, x_i = shift * w^i,
 //   F <- F * alpha^{len_b} + (v_b(x_i) - y_b) / (x_i - z_b)  for b in order,
 //   out[part][i] = (F * x_i)[part],
-// z_b, y_b and alpha^{len_b} from the bank. 1/(x - z) =
-// (x - z_re + z_im phi) / N with the base norm N = (x - z_re)^2 - 7 z_im^2;
-// a thread takes QUOTIENT_CHUNK points, i = t + k * T for T threads (its
-// loads and stores coalesced across the warp), x stepping by w^T (and back
-// by w^-T), and inverts the norms of all its points and batches with one
-// gl::inv (Montgomery's trick, as K7: a running product over the points of
-// each point's norm product, the walk back, and the same trick over a
-// point's B norms); a zero norm enters the products as 1 and gives 0 (what
-// gfe.inv gives; the coset misses H, so no real denominator is 0). Bound:
-// the products, about 14 a batch a point and 3 (the step of x, the bump)
-// against 16 bytes read a batch and 16 written a point; each extension
-// product is two 160-bit sums of two unreduced products. A thread keeps
-// the running products of its points' norm products only (not of each
-// norm) and steps x back rather than keep it; the batches' constants (z,
-// y, alpha^len and their multiples by 7) sit in shared memory, made once a
-// block. Its instructions hold it (about 1,850 a point with the
-// exponentiations a thread, against the bound's 952 operations; PERF.md).
+// z_b, y_b and alpha^{len_b} from the bank. With 1/(x - z) =
+// (x - z_re + z_im phi) / N_b, the base norm N_b = (x - z_re)^2 - 7 z_im^2,
+// and C_b the product of the later batches' alpha^len (F's Horner steps
+// unrolled: F = sum_b C_b q_b),
+//   F x = x / D * sum_b n_b w_b,  w_b = Q_b C_b (x - z_re + z_im phi),
+// n_b = v_b - y_b, D = prod_b N_b and Q_b the product of the other
+// batches' norms: one inversion a point (of D) in place of B, and no
+// Horner chain. A zero norm enters D and the Q as 1 and zeroes its own
+// Q_b, so its batch adds 0 (what gfe.inv gives; the coset misses H, so no
+// real denominator is 0). C_b and K_b = z_im phi C_b are a block's
+// constants (w_b = u C_b + Q_b K_b, u = Q_b (x - z_re)), in shared memory,
+// made once a block by its first thread. A point's sum of B extension
+// products goes into three 160-bit sums (re x re, im x im for the 7 phi^2
+// term, and im), each reduced once.
+// A thread takes QUOTIENT_PAIRS pairs of points (j, j + size / 2), j = t +
+// k T for T threads (its loads and stores coalesced across the warp): x_j
+// = shift * w^j from K1's twiddles of the coset's size (8 bytes a pair,
+// no exponentiation), and x_{j + size/2} = -x_j (w^{size/2} = -1; times
+// `half_step` = w^{ceil(size/2)} for any other w, the host tests' ragged
+// sizes). A first pass over its points writes each point's sum times x
+// (lazily) to `out` and keeps the running product of the D before it and
+// D in shared memory; one gl::inv of the thread's product (Montgomery's
+// trick over 2 QUOTIENT_PAIRS points); a second pass walks back, giving
+// each point 1/D and its canonical value. The loops over the pairs stay
+// rolled (a pass's body is one pair), so the code fits the instruction
+// cache. Bound: the operations, about 14 products a batch and 3 a point
+// (fri_quotient_bound's count), against 16 bytes read a batch and 16
+// written a point.
 //
 // K12 gl_fri_fold: one FRI fold (olavm_tpu/stark/prover_device.py:887-921
 // fold_fn, the "frifold" program, which the port ran as arity - 1
@@ -85,16 +96,16 @@ constexpr int COMBINE_THREADS = 128;
 // columns a thread of K9: 2 B x 2 160-bit sums in registers
 constexpr int COMBINE_COLS = 2;
 constexpr int QUOTIENT_THREADS = 128;
-// points a thread of K10: the running products of their norms' products
-// in registers
-constexpr int QUOTIENT_CHUNK = 8;
+// pairs of points a thread of K10 (two words a point kept in shared
+// memory for the pass back)
+constexpr int QUOTIENT_PAIRS = 8;
 constexpr int FOLD_THREADS = 128;
 // blocks of a K12 launch at most (each thread then folds several outputs
 // with beta's powers loaded once)
 constexpr int FOLD_MAX_BLOCKS = 132 * 8;
-// each batch's constants in K10's shared memory: z, 7 zi, 7 zi^2, y,
-// alpha^len and 7 times its im part
-enum { ZR, ZI, ZI7, ZZ7, Y0, Y1, C0, C1, C17, CONSTANTS };
+// each batch's constants in K10's shared memory: z_re, z_im, 7 z_im^2, y,
+// C (the later batches' alpha^len multiplied) and K = z_im phi C
+enum { ZR, ZI, ZZ7, Y0, Y1, CR, CI, KR, KI, CONSTANTS };
 constexpr uint64_t W = 7;
 
 // rows [first, first + count) of one oracle and, per batch, the bank offsets
@@ -183,117 +194,161 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
   }
 }
 
+// K10's constants of B batches from the bank, by one thread
+template <int B>
+__device__ __forceinline__ void quotient_constants(
+    const QuotientPlan& plan, const uint64_t* bank,
+    uint64_t (*cst)[CONSTANTS]) {
+  uint64_t cr = 1, ci = 0;  // C_b, from the last batch down
+#pragma unroll
+  for (int b = B - 1; b >= 0; --b) {
+    const uint64_t* pt = bank + plan.point[b];
+    const uint64_t zi = pt[1], zi7 = gl::mul(zi, W);
+    cst[b][ZR] = pt[0];
+    cst[b][ZI] = zi;
+    cst[b][ZZ7] = gl::mul(zi7, zi);
+    cst[b][Y0] = pt[2];
+    cst[b][Y1] = pt[3];
+    cst[b][CR] = cr;
+    cst[b][CI] = ci;
+    cst[b][KR] = gl::mul(zi7, ci);
+    cst[b][KI] = gl::mul(zi, cr);
+    // C_{b-1} = C_b alpha_b^len
+    const uint64_t c0 = pt[4], c1 = pt[5];
+    const uint64_t nr = gl::add(gl::mul(cr, c0), gl::mul(gl::mul(ci, c1), W));
+    ci = gl::add(gl::mul(cr, c1), gl::mul(ci, c0));
+    cr = nr;
+  }
+}
+
+// K10's first pass at point i, x = x_i canonical: writes x sum_b n_b w_b
+// (lazy) to out[i] and out[size + i] and returns D, the product of the
+// nonzero norms
+template <int B>
+__device__ __forceinline__ uint64_t quotient_point(
+    uint64_t (*cst)[CONSTANTS], const uint64_t* __restrict__ values,
+    uint64_t* __restrict__ out, int64_t size, int64_t i, uint64_t x) {
+  uint64_t a[B], nz[B];
+  bool zero[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    a[b] = gl::sub(x, cst[b][ZR]);
+    const uint64_t norm = gl::sub(gl::mul(a[b], a[b]), cst[b][ZZ7]);
+    zero[b] = norm == 0;
+    nz[b] = zero[b] ? 1 : norm;
+  }
+  // q[b] the product of the other batches' norms (prefix times suffix),
+  // d all of them
+  uint64_t q[B], d;
+  if constexpr (B == 1) {
+    q[0] = 1;
+    d = nz[0];
+  } else {
+    uint64_t pre[B], suf[B];
+    pre[1] = nz[0];
+#pragma unroll
+    for (int b = 2; b < B; ++b) pre[b] = gl::mul_lazy(pre[b - 1], nz[b - 1]);
+    suf[B - 1] = nz[B - 1];
+#pragma unroll
+    for (int b = B - 2; b >= 1; --b) suf[b] = gl::mul_lazy(suf[b + 1], nz[b]);
+    q[0] = suf[1];
+    q[B - 1] = pre[B - 1];
+#pragma unroll
+    for (int b = 1; b < B - 1; ++b) q[b] = gl::mul_lazy(pre[b], suf[b + 1]);
+    d = gl::mul_lazy(pre[B - 1], nz[B - 1]);
+  }
+  gl::u160 s_re = {0, 0, 0}, s_w = {0, 0, 0}, s_im = {0, 0, 0};
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const uint64_t qb = zero[b] ? 0 : q[b];
+    const uint64_t u = gl::mul_lazy(qb, a[b]);
+    uint64_t wr, wi;
+    if (b == B - 1) {  // C = 1, K = z_im phi
+      wr = u;
+      wi = gl::mul_lazy(qb, cst[b][ZI]);
+    } else {
+      gl::u160 t = {0, 0, 0};
+      gl::acc_add(t, gl::mul_wide(u, cst[b][CR]));
+      gl::acc_add(t, gl::mul_wide(qb, cst[b][KR]));
+      wr = gl::reduce160_lazy(t);
+      t = {0, 0, 0};
+      gl::acc_add(t, gl::mul_wide(u, cst[b][CI]));
+      gl::acc_add(t, gl::mul_wide(qb, cst[b][KI]));
+      wi = gl::reduce160_lazy(t);
+    }
+    // (n0 + n1 phi)(wr + wi phi) = n0 wr + 7 n1 wi + (n0 wi + n1 wr) phi
+    const uint64_t n0 = gl::sub(__ldg(values + (2 * b) * size + i),
+                                cst[b][Y0]);
+    const uint64_t n1 = gl::sub(__ldg(values + (2 * b + 1) * size + i),
+                                cst[b][Y1]);
+    gl::acc_add(s_re, gl::mul_wide(n0, wr));
+    gl::acc_add(s_w, gl::mul_wide(n1, wi));
+    gl::acc_add(s_im, gl::mul_wide(n0, wi));
+    gl::acc_add(s_im, gl::mul_wide(n1, wr));
+  }
+  gl::acc_add(s_re, gl::mul_wide(gl::reduce160_lazy(s_w), W));
+  out[i] = gl::mul_lazy(gl::reduce160_lazy(s_re), x);
+  out[size + i] = gl::mul_lazy(gl::reduce160_lazy(s_im), x);
+  return d;
+}
+
 template <int B>
 __global__ void __launch_bounds__(QUOTIENT_THREADS)
     quotient_kernel(const QuotientPlan plan,
                     const uint64_t* __restrict__ values,
                     const uint64_t* __restrict__ bank,
+                    const uint64_t* __restrict__ tw,
                     uint64_t* __restrict__ out, int64_t size, uint64_t shift,
-                    uint64_t omega, uint64_t omega_step,
-                    uint64_t omega_back) {
+                    uint64_t half_step) {
   // each batch's constants, made once a block by its first thread
   __shared__ uint64_t cst[B][CONSTANTS];
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const uint64_t* pt = bank + plan.point[b];
-      const uint64_t zi = pt[1], zi7 = gl::mul(pt[1], W);
-      cst[b][ZR] = pt[0];
-      cst[b][ZI] = zi;
-      cst[b][ZI7] = zi7;
-      cst[b][ZZ7] = gl::mul(zi7, zi);
-      cst[b][Y0] = pt[2];
-      cst[b][Y1] = pt[3];
-      cst[b][C0] = pt[4];
-      cst[b][C1] = pt[5];
-      cst[b][C17] = gl::mul(pt[5], W);
-    }
-  }
+  // per point p = 2 k + (upper) of each thread: the product of the D of
+  // its earlier points (keep[2 p]) and its D (keep[2 p + 1])
+  __shared__ uint64_t keep[4 * QUOTIENT_PAIRS][QUOTIENT_THREADS];
+  if (threadIdx.x == 0) quotient_constants<B>(plan, bank, cst);
   __syncthreads();
-  const int64_t threads = (size + QUOTIENT_CHUNK - 1) / QUOTIENT_CHUNK;
+  const int64_t half = (size + 1) / 2;
+  const int64_t threads = (half + QUOTIENT_PAIRS - 1) / QUOTIENT_PAIRS;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (t >= threads) return;
-  // pre[k] the running product of the thread's points' norm products
-  // P_k, each norm a nonzero norm (1 for a zero one or past the end)
-  uint64_t pre[QUOTIENT_CHUNK];
+  const unsigned me = threadIdx.x;
+  const bool negate = half_step == gl::P - 1;
   uint64_t run = 1;
-  uint64_t x = gl::mul(shift, gl::pow_u64(omega, static_cast<uint64_t>(t)));
-#pragma unroll
-  for (int k = 0; k < QUOTIENT_CHUNK; ++k) {
-    const bool live = t + k * threads < size;
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const uint64_t a = gl::sub(x, cst[b][ZR]);
-      const uint64_t norm = gl::sub(gl::mul(a, a), cst[b][ZZ7]);
-      run = gl::mul(run, live && norm ? norm : 1);
+#pragma unroll 1
+  for (int k = 0; k < QUOTIENT_PAIRS; ++k) {
+    const int64_t j = t + k * threads;
+    if (j >= half) break;
+    const uint64_t x = gl::mul(shift, __ldg(tw + j));
+    uint64_t d = quotient_point<B>(cst, values, out, size, j, x);
+    keep[4 * k][me] = run;
+    keep[4 * k + 1][me] = d;
+    run = gl::mul_lazy(run, d);
+    if (j + half < size) {
+      const uint64_t xu = negate ? (x ? gl::P - x : 0)
+                                 : gl::mul(x, half_step);
+      d = quotient_point<B>(cst, values, out, size, j + half, xu);
+      keep[4 * k + 2][me] = run;
+      keep[4 * k + 3][me] = d;
+      run = gl::mul_lazy(run, d);
     }
-    pre[k] = run;
-    x = gl::mul(x, omega_step);
   }
-  // inv_run = 1 / pre[k] for the k of each step below; x walks back
+  // inv_run = 1 / (the product of the D up to the point below), walking
+  // back
   uint64_t inv_run = gl::inv(run);
+#pragma unroll 1
+  for (int k = QUOTIENT_PAIRS - 1; k >= 0; --k) {
+    const int64_t j = t + k * threads;
+    if (j >= half) continue;
 #pragma unroll
-  for (int k = QUOTIENT_CHUNK - 1; k >= 0; --k) {
-    x = gl::mul(x, omega_back);
-    const int64_t i = t + k * threads;
-    const bool live = i < size;
-    // 1 / P_k, then each norm's inverse by the same trick over the batches
-    uint64_t r = k ? gl::mul(inv_run, pre[k - 1]) : inv_run;
-    uint64_t a[B], norm[B], part[B];
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      a[b] = gl::sub(x, cst[b][ZR]);
-      norm[b] = gl::sub(gl::mul(a[b], a[b]), cst[b][ZZ7]);
-      const uint64_t nz = live && norm[b] ? norm[b] : 1;
-      part[b] = b ? gl::mul(part[b - 1], nz) : nz;
+    for (int u = 1; u >= 0; --u) {
+      const int64_t i = j + u * half;
+      if (i >= size) continue;
+      const uint64_t inv_d = gl::mul_lazy(inv_run, keep[4 * k + 2 * u][me]);
+      inv_run = gl::mul_lazy(inv_run, keep[4 * k + 2 * u + 1][me]);
+      out[i] = gl::mul(out[i], inv_d);
+      out[size + i] = gl::mul(out[size + i], inv_d);
     }
-    inv_run = gl::mul(inv_run, part[B - 1]);
-    if (!live) continue;
-    uint64_t ninv[B];
-#pragma unroll
-    for (int b = B - 1; b > 0; --b) {
-      ninv[b] = norm[b] ? gl::mul(r, part[b - 1]) : 0;
-      r = gl::mul(r, norm[b] ? norm[b] : 1);
-    }
-    ninv[0] = norm[0] ? r : 0;
-    uint64_t f0 = 0, f1 = 0;
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const uint64_t n0 =
-          gl::sub(__ldg(values + (2 * b) * size + i), cst[b][Y0]);
-      const uint64_t n1 =
-          gl::sub(__ldg(values + (2 * b + 1) * size + i), cst[b][Y1]);
-      // (n0 + n1 phi)(a + zi phi) = n0 a + 7 n1 zi + (n0 zi + n1 a) phi,
-      // then times 1 / N
-      gl::u160 s = {0, 0, 0};
-      gl::acc_add(s, gl::mul_wide(n0, a[b]));
-      gl::acc_add(s, gl::mul_wide(n1, cst[b][ZI7]));
-      const uint64_t q0 = gl::mul(gl::reduce160_lazy(s), ninv[b]);
-      s = {0, 0, 0};
-      gl::acc_add(s, gl::mul_wide(n0, cst[b][ZI]));
-      gl::acc_add(s, gl::mul_wide(n1, a[b]));
-      const uint64_t q1 = gl::mul(gl::reduce160_lazy(s), ninv[b]);
-      if (b == 0) {  // F = 0 before the first batch
-        f0 = q0;
-        f1 = q1;
-        continue;
-      }
-      // F alpha^len + q = F0 c0 + 7 F1 c1 + q0 + (F0 c1 + F1 c0 + q1) phi
-      s = {0, 0, 0};
-      gl::acc_add(s, gl::mul_wide(f0, cst[b][C0]));
-      gl::acc_add(s, gl::mul_wide(f1, cst[b][C17]));
-      gl::acc_add(s, {q0, 0});
-      const uint64_t g0 = gl::reduce160_lazy(s);
-      s = {0, 0, 0};
-      gl::acc_add(s, gl::mul_wide(f0, cst[b][C1]));
-      gl::acc_add(s, gl::mul_wide(f1, cst[b][C0]));
-      gl::acc_add(s, {q1, 0});
-      f1 = gl::reduce160_lazy(s);
-      f0 = g0;
-    }
-    out[i] = gl::mul(f0, x);
-    out[size + i] = gl::mul(f1, x);
   }
 }
 
@@ -351,19 +406,10 @@ inline unsigned combine_blocks(int64_t size) {
 }
 
 inline unsigned quotient_blocks(int64_t size) {
-  const int64_t threads = (size + QUOTIENT_CHUNK - 1) / QUOTIENT_CHUNK;
+  const int64_t threads =
+      ((size + 1) / 2 + QUOTIENT_PAIRS - 1) / QUOTIENT_PAIRS;
   return static_cast<unsigned>((threads + QUOTIENT_THREADS - 1) /
                                QUOTIENT_THREADS);
-}
-
-// a^e mod p on the host (omega^T for K10's step)
-inline uint64_t host_pow(uint64_t a, uint64_t e) {
-  unsigned __int128 r = 1, b = a;
-  for (; e; e >>= 1) {
-    if (e & 1) r = r * b % gl::P;
-    b = b * b % gl::P;
-  }
-  return static_cast<uint64_t>(r);
 }
 
 }  // namespace fri
@@ -393,26 +439,23 @@ extern "C" int gl_fri_combine(const void* plan, int batches, const void* bank,
   return static_cast<int>(cudaGetLastError());
 }
 
-// plan: a host fri::QuotientPlan; values: (batches, 2, size); out: (2, size)
+// plan: a host fri::QuotientPlan; values: (batches, 2, size); tw: w^j for
+// j < ceil(size / 2); half_step: w^ceil(size / 2) (p - 1 for a root of
+// unity of order size); out: (2, size)
 extern "C" int gl_fri_quotient(const void* plan, int batches,
                                const void* values, const void* bank,
-                               void* out, int64_t size, uint64_t shift,
-                               uint64_t omega, void* stream) {
+                               const void* tw, void* out, int64_t size,
+                               uint64_t shift, uint64_t half_step,
+                               void* stream) {
   const auto& p = *static_cast<const fri::QuotientPlan*>(plan);
   const auto s = static_cast<cudaStream_t>(stream);
-  const uint64_t threads =
-      static_cast<uint64_t>((size + fri::QUOTIENT_CHUNK - 1) /
-                            fri::QUOTIENT_CHUNK);
-  const uint64_t step = fri::host_pow(omega, threads);
-  // omega^-T = omega^((p - 2) T): x's step back
-  const uint64_t back = fri::host_pow(fri::host_pow(omega, gl::P - 2),
-                                      threads);
+  if (size <= 0) return 0;
 #define FRI_QUOTIENT(B)                                                    \
   fri::quotient_kernel<B><<<fri::quotient_blocks(size),                    \
                             fri::QUOTIENT_THREADS, 0, s>>>(                \
       p, static_cast<const uint64_t*>(values),                             \
-      static_cast<const uint64_t*>(bank), static_cast<uint64_t*>(out), size, \
-      shift, omega, step, back)
+      static_cast<const uint64_t*>(bank), static_cast<const uint64_t*>(tw), \
+      static_cast<uint64_t*>(out), size, shift, half_step)
   FRI_DISPATCH(batches, FRI_QUOTIENT)
 #undef FRI_QUOTIENT
   return static_cast<int>(cudaGetLastError());

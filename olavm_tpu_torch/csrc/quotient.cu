@@ -9,7 +9,9 @@
 // they are read there.
 //
 // gl_scale_powers: out[c][i] = x[c][i] * factor * base^i over (C, n) (the
-// factor 1 in a class; the FRI composition's coset iNTT folds its 1/n in).
+// factor 1 in a class; a coset iNTT folds its 1/n in), base read from the
+// card (a class's shift, a program input) or passed by value (a host
+// constant: ntt/ntt.py's coset transforms, and base 1 for intt's 1/n).
 // Bound: memory (16 bytes per element); one thread per point i computes
 // factor * base^i once (square and multiply, then a product per grid
 // stride) and scales the C columns, coalesced across threads.
@@ -40,11 +42,12 @@ __global__ void scale_powers_kernel(const uint64_t* __restrict__ x,
                                     uint64_t* __restrict__ out,
                                     const uint64_t* __restrict__ base_ptr,
                                     int64_t cols, int64_t n,
-                                    uint64_t factor = 1) {
+                                    uint64_t factor = 1,
+                                    uint64_t base_value = 1) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
-  const uint64_t base = __ldg(base_ptr);
+  const uint64_t base = base_ptr ? __ldg(base_ptr) : base_value;
   const uint64_t step = gl::pow_u64(base, static_cast<uint64_t>(stride));
   uint64_t w =
       gl::mul(factor, gl::pow_u64(base, static_cast<uint64_t>(first)));
@@ -98,14 +101,15 @@ __global__ void selectors_kernel(const uint64_t* __restrict__ cls,
 
 }  // namespace
 
-// base: a one-element device array; factor: a canonical constant
+// base: a one-element device array, or null for base_value; base_value and
+// factor: canonical constants
 extern "C" int gl_scale_powers(const void* x, void* out, const void* base,
-                               uint64_t factor, int64_t cols, int64_t n,
-                               void* stream) {
+                               uint64_t base_value, uint64_t factor,
+                               int64_t cols, int64_t n, void* stream) {
   scale_powers_kernel<<<gl::grid_for(n, THREADS), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(out),
-      static_cast<const uint64_t*>(base), cols, n, factor);
+      static_cast<const uint64_t*>(base), cols, n, factor, base_value);
   return static_cast<int>(cudaGetLastError());
 }
 

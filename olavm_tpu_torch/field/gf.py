@@ -6,7 +6,9 @@ uint64 values (< p); values >= 2^63 read as negative int64. The TPU package's
 
 On a CUDA tensor, `mul`, `add` and `sub` launch the hand-written kernels of
 csrc/gf_mul.cu (K3 and its add/sub siblings), `inv` launches K7
-(csrc/gf_inv.cu), `prefix_prod` K8 (csrc/scan.cu), and `eval_points` (every
+(csrc/gf_inv.cu), `prefix_prod` K8 (csrc/scan.cu), `powers` (a power
+table) K13 (csrc/powers.cu), `scale_powers` (x times a base's powers, the
+coset scaling) gl_scale_powers (csrc/quotient.cu), and `eval_points` (every
 polynomial at every point of a power table) K5, csrc/eval.cu. On
 a CPU tensor they run the plain versions beside them (`mul_plain`, ...), which use only int64 torch
 ops: torch has no add, shift or compare for uint64, so the plain versions
@@ -39,13 +41,18 @@ M16 = 0xFFFF
 # ---------------------------------------------------------------------------
 
 
-def from_u64(x, device) -> torch.Tensor:
-    """numpy uint64 (or int list) -> int64 tensor on `device`.
+def from_u64(x, device, pinned: bool = False) -> torch.Tensor:
+    """numpy uint64 (or int list) -> int64 tensor on `device`. With
+    `pinned`, a copy to a card goes through page-locked memory and does not
+    wait for the stream (a pageable copy does).
 
     Precondition: values are canonical (< p); they are copied, not reduced
     (as olavm_tpu/field/gf.py:47-52)."""
     a = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
-    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+    t = torch.from_numpy(a.view(np.int64).copy())
+    if pinned and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def to_u64(t: torch.Tensor) -> np.ndarray:
@@ -289,38 +296,80 @@ def inv_plain(a: torch.Tensor) -> torch.Tensor:
     return result
 
 
-def powers(base, n: int, device) -> torch.Tensor:
-    """[1, b, b^2, ..., b^{n-1}] by log-doubling (log2(n) array muls).
-    `base` is a host int (power_rows: each doubling's b^m computed on the
-    host and copied to the device) or a 0-dim tensor (b^m squared on the
-    device: no host value and no host copy, so a program can take its base
-    from an input)."""
+def powers(base, n: int, device=None) -> torch.Tensor:
+    """[1, b, b^2, ..., b^{n-1}]: K13 (csrc/powers.cu, one launch) on the
+    card, powers_plain elsewhere. `base` is a 0-dim tensor (read on the
+    device: a program can take it from an input), a (k,) tensor (a (k, n)
+    table, one row a base) or a host int (made a 0-dim tensor on
+    `device`)."""
     if not isinstance(base, torch.Tensor):
-        return power_rows([base], n, device)[0]
-    out = ones((1,), device)
-    bm = base  # base^length
-    length = 1
-    while length < n:
-        step = min(length, n - length)
-        out = torch.cat([out, mul(out[:step], bm)])
-        length += step
-        if length < n:
-            bm = square(bm)
-    return out[:n]
+        base = scalar(base, device)
+    if base.device.type != "cuda":
+        return powers_plain(base, n)
+    if base.dim() > 1:
+        raise ValueError(f"powers: bases {tuple(base.shape)}, not () or (k,)")
+    bases = base.reshape(-1).contiguous()
+    kernels.require_cuda_int64(bases)
+    out = torch.empty((*base.shape, n), dtype=torch.int64, device=base.device)
+    if n and bases.numel():
+        kernels.check(kernels.lib("powers").gl_powers(
+            bases.data_ptr(), out.data_ptr(), bases.numel(), n,
+            kernels.stream_ptr(out)), f"powers ({bases.numel()} x {n})")
+        kernels.count("powers")
+    return out
 
 
 def powers_plain(base: torch.Tensor, n: int) -> torch.Tensor:
-    """[1, b, ..., b^{n-1}] of a 0-dim tensor b by log-doubling on the plain
-    product (powers' plain version, for the kernels' plain versions)."""
-    out = torch.ones((1,), dtype=torch.int64, device=base.device)
-    bm, length = base, 1
+    """Plain version of K13: [1, b, ..., b^{n-1}] along a new last axis for
+    every b of `base` (a 0-dim or (k,) tensor), by log-doubling on the plain
+    product: the block [0, m) times b^m gives [m, 2m)."""
+    out = torch.ones((*base.shape, 1), dtype=torch.int64, device=base.device)
+    bm, length = base[..., None], 1
     while length < n:
         step = min(length, n - length)
-        out = torch.cat([out, mul_plain(out[:step], bm)])
+        out = torch.cat([out, mul_plain(out[..., :step], bm)], dim=-1)
         length += step
         if length < n:
             bm = mul_plain(bm, bm)
-    return out[:n]
+    return out[..., :n]
+
+
+def scale_powers(x: torch.Tensor, base, factor: int = 1) -> torch.Tensor:
+    """x[c, i] * factor * base^i over a (C, n) array: gl_scale_powers
+    (csrc/quotient.cu, one launch) on a CUDA tensor, scale_powers_plain on
+    a CPU one. `base` is a one-element tensor (read on the device, so a
+    program can take it from an input) or a host int (by value), `factor`
+    a host constant (static in a program)."""
+    if x.device.type != "cuda":
+        return scale_powers_plain(x, base, factor)
+    if x.dim() != 2:
+        raise ValueError(f"scale_powers: {tuple(x.shape)}, not (C, n)")
+    x = x.contiguous()
+    if isinstance(base, torch.Tensor):
+        base = base.reshape(1).contiguous()
+        kernels.require_cuda_int64(x, base)
+        ptr, value = base.data_ptr(), 0
+    else:
+        kernels.require_cuda_int64(x)
+        ptr, value = None, int(base) % P
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    kernels.check(kernels.lib("quotient").gl_scale_powers(
+        x.data_ptr(), out.data_ptr(), ptr, value, factor % P, x.shape[0],
+        x.shape[1], kernels.stream_ptr(x)), "scale_powers")
+    kernels.count("scale_powers")
+    return out
+
+
+def scale_powers_plain(x: torch.Tensor, base, factor: int = 1
+                       ) -> torch.Tensor:
+    """Plain version of gl_scale_powers: the power table by log-doubling
+    (powers_plain), times the factor, times x."""
+    if not isinstance(base, torch.Tensor):
+        base = scalar(base, x.device)
+    pows = powers_plain(base.reshape(()), x.shape[-1])
+    return mul_plain(x, mul_plain(pows, scalar(factor, x.device)))
 
 
 def sum_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -345,7 +394,9 @@ def sum_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def power_rows(bases, n: int, device) -> torch.Tensor:
     """(k, n) table [1, x, ..., x^{n-1}] of each host-known base x, by
-    log-doubling: the row block [0, m) times x^m gives [m, 2m)."""
+    log-doubling: the row block [0, m) times x^m gives [m, 2m), each x^m
+    copied from the host (ntt.twiddles' first build of a size; powers
+    makes every other table on the card)."""
     xs = [int(x) % P for x in bases]
     out = ones((len(xs), 1), device)
     length = 1

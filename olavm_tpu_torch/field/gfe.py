@@ -90,19 +90,54 @@ def exp_const(a: GFE, e: int) -> GFE:
 
 
 def powers(base: GFE, n: int) -> GFE:
-    """[1, b, ..., b^{n-1}] by log-doubling; base is a 0-dim GFE, b^m
-    squared on the device."""
-    out = ones((1,), base.re.device)
-    bm = base  # base^length
-    length = 1
+    """[1, b, ..., b^{n-1}] of a 0-dim GFE b: the rows of powers_stacked."""
+    out = powers_stacked(base, n)
+    return GFE(out[0], out[1])
+
+
+def powers_stacked(base: GFE, n: int) -> torch.Tensor:
+    """(2, n) re and im of [1, b, ..., b^{n-1}] for a 0-dim GFE b read on
+    the device (a program can take it from an input): K13's extension
+    instantiation (csrc/powers.cu, one launch) on CUDA tensors, powers_plain
+    on CPU tensors."""
+    if not gf._on_cuda(base.re, base.im):
+        out = powers_plain(base, n)
+        return torch.stack([out.re, out.im])
+    re, im = base.re.reshape(1), base.im.reshape(1)
+    kernels.require_cuda_int64(re, im)
+    out = torch.empty((2, n), dtype=torch.int64, device=re.device)
+    if n:
+        kernels.check(kernels.lib("powers").gl_ext_powers(
+            re.data_ptr(), im.data_ptr(), out.data_ptr(), n,
+            kernels.stream_ptr(out)), f"ext_powers ({n})")
+        kernels.count("ext_powers")
+    return out
+
+
+def powers_plain(base: GFE, n: int) -> GFE:
+    """Plain version of K13's extension instantiation: log-doubling on the
+    plain ops (the block [0, m) times b^m gives [m, 2m), b^m squared)."""
+    device = base.re.device
+    out = GFE(torch.ones((1,), dtype=torch.int64, device=device),
+              torch.zeros((1,), dtype=torch.int64, device=device))
+    bm, length = base, 1
     while length < n:
         step = min(length, n - length)
-        nxt = mul(out[:step], bm)
+        nxt = mul_plain(out[:step], bm)
         out = GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
         length += step
         if length < n:
-            bm = mul(bm, bm)
+            bm = mul_plain(bm, bm)
     return out[:n]
+
+
+def mul_plain(a: GFE, b: GFE) -> GFE:
+    """mul on the plain ops (Karatsuba's three products)."""
+    t0 = gf.mul_plain(a.re, b.re)
+    t1 = gf.mul_plain(a.im, b.im)
+    t2 = gf.mul_plain(gf.add_plain(a.re, a.im), gf.add_plain(b.re, b.im))
+    return GFE(gf.add_plain(t0, gf.mul_plain(t1, gf.scalar(W, t1.device))),
+               gf.sub_plain(t2, gf.add_plain(t0, t1)))
 
 
 def inv(a: GFE) -> GFE:

@@ -36,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("blake3", "ctl", "eval", "fri", "gf_inv", "gf_mul", "ntt",
-           "poseidon", "quotient", "scan")
+           "poseidon", "powers", "quotient", "scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +47,7 @@ LAUNCHES = {"gf_mul": 0, "gf_add": 0, "gf_sub": 0, "ntt": 0, "poseidon": 0,
             "eval_points": 0, "constraints": 0, "scale_powers": 0,
             "quotient_selectors": 0, "gf_inv": 0, "gf_ext_inv": 0,
             "prefix_prod": 0, "fri_combine": 0, "fri_quotient": 0,
-            "ctl_combine": 0, "fri_fold": 0}
+            "ctl_combine": 0, "fri_fold": 0, "powers": 0, "ext_powers": 0}
 # kernel name -> launches the host issued itself since the last reset (a
 # replayed program's launches are counted in LAUNCHES only)
 HOST_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
@@ -80,7 +80,8 @@ _SIGNATURES = {
              "gl_eval_occupancy": [_INT, _I64, ctypes.POINTER(_INT)]},
     "fri": {
         "gl_fri_combine": [_VP, _INT, _VP, _VP, _I64, _I64, _U64, _VP],
-        "gl_fri_quotient": [_VP, _INT, _VP, _VP, _VP, _I64, _U64, _U64, _VP],
+        "gl_fri_quotient": [_VP, _INT, _VP, _VP, _VP, _VP, _I64, _U64, _U64,
+                            _VP],
         "gl_fri_fold": [_VP, _VP, _VP, _VP, _I64, _INT, _VP],
     },
     "gf_inv": {
@@ -101,8 +102,12 @@ _SIGNATURES = {
         "gl_poseidon_level": [_VP, _VP, _I64, _VP],
         "gl_poseidon_absorb": [_VP, _VP, _VP, _VP, _I64, _INT, _VP],
     },
+    "powers": {
+        "gl_powers": [_VP, _VP, _I64, _I64, _VP],
+        "gl_ext_powers": [_VP, _VP, _VP, _I64, _VP],
+    },
     "quotient": {
-        "gl_scale_powers": [_VP, _VP, _VP, _U64, _I64, _I64, _VP],
+        "gl_scale_powers": [_VP, _VP, _VP, _U64, _U64, _I64, _I64, _VP],
         "gl_quotient_selectors": [_VP, _VP, _I64, _U64, _U64, _VP],
     },
     "scan": {

@@ -4,7 +4,8 @@ and olavm_tpu/ntt/pallas_ntt.py.
 Conventions match the reference polynomial layer: `ntt` maps coefficients to
 values p(w^i) in natural order along the last axis; `intt` inverts it and
 applies 1/n after the transform; `coset_lde` evaluates on shift * H' with
-|H'| = n << rate_bits.
+|H'| = n << rate_bits. The coset scalings and the 1/n are one pass of
+gf.scale_powers each (gl_scale_powers on the card), with no power table.
 
 On a CUDA tensor every transform with n >= 2 launches K1 (csrc/ntt.cu): one
 to three passes that each run several radix-2 stages in shared memory, the
@@ -31,13 +32,13 @@ _PERMS: dict = {}
 
 def twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
     """Powers w^0 .. w^{n/2-1} of the order-n root (or its inverse), built
-    once per size and device by log-doubling."""
+    once per size and device by log-doubling (gf.power_rows)."""
     key = (str(device), log_n, inverse)
     if key not in _TWIDDLES:
         root = g.primitive_root_of_unity(log_n)
         if inverse:
             root = g.inv(root)
-        _TWIDDLES[key] = gf.powers(root, 1 << (log_n - 1), device)
+        _TWIDDLES[key] = gf.power_rows([root], 1 << (log_n - 1), device)[0]
     return _TWIDDLES[key]
 
 
@@ -97,8 +98,7 @@ def intt(x: torch.Tensor) -> torch.Tensor:
     log2_strict(n)
     if n == 1:
         return x
-    y = _transform(x, inverse=True)
-    return gf.mul(y, gf.scalar(g.inv(n), x.device))
+    return scale_by_powers(_transform(x, inverse=True), 1, g.inv(n))
 
 
 def intt_unscaled(x: torch.Tensor) -> torch.Tensor:
@@ -108,21 +108,26 @@ def intt_unscaled(x: torch.Tensor) -> torch.Tensor:
     return _transform(x, inverse=True)
 
 
-def scale_by_powers(x: torch.Tensor, base: int) -> torch.Tensor:
-    """x[..., j] *= base^j (host-known base)."""
-    return gf.mul(x, gf.powers(base, x.shape[-1], x.device))
+def scale_by_powers(x: torch.Tensor, base, factor: int = 1) -> torch.Tensor:
+    """x[..., j] * factor * base^j along the last axis: one gl_scale_powers
+    over the rows (gf.scale_powers; no power table). `base` is a host int
+    (by value) or a one-element device tensor."""
+    n = x.shape[-1]
+    return gf.scale_powers(x.reshape(-1, n), base, factor).reshape(x.shape)
 
 
 def coset_fft(coeffs: torch.Tensor,
-              shift: int = g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+              shift=g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
     """Evaluate polynomials on shift*H, |H| = len(coeffs)."""
     return ntt(scale_by_powers(coeffs, shift))
 
 
 def coset_ifft(values: torch.Tensor,
                shift: int = g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
-    """Inverse of coset_fft."""
-    return scale_by_powers(intt(values), g.inv(shift))
+    """Inverse of coset_fft (host-known shift): the unscaled inverse
+    transform, then one pass of shift^-j / n."""
+    return scale_by_powers(intt_unscaled(values), g.inv(shift),
+                           g.inv(values.shape[-1]))
 
 
 def _pad_last(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -135,11 +140,12 @@ def lde(coeffs: torch.Tensor, rate_bits: int) -> torch.Tensor:
 
 
 def coset_lde(coeffs: torch.Tensor, rate_bits: int,
-              shift: int = g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+              shift=g.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
     """Evaluations of the degree-<n polynomials on shift*H',
-    |H'| = n << rate_bits."""
-    padded = _pad_last(coeffs, coeffs.shape[-1] << rate_bits)
-    return ntt(scale_by_powers(padded, shift))
+    |H'| = n << rate_bits: the n coefficients scaled by shift^j, then
+    padded (the zeros need no scaling)."""
+    scaled = scale_by_powers(coeffs, shift)
+    return ntt(_pad_last(scaled, coeffs.shape[-1] << rate_bits))
 
 
 def bitrev_perm(n: int, device) -> torch.Tensor:

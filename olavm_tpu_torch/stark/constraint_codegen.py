@@ -550,32 +550,9 @@ def prebuild(tables) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def scale_powers(x: torch.Tensor, base: torch.Tensor, factor: int = 1
-                 ) -> torch.Tensor:
-    """x[..., i] * factor * base^i along the last axis of a (C, n) array,
-    `base` a one-element device tensor, `factor` a host constant (static in
-    a program): gl_scale_powers on CUDA tensors, the plain version
-    (log-doubled powers and the plain product) on CPU tensors."""
-    if x.device.type != "cuda":
-        return scale_powers_plain(x, base, factor)
-    x, base = x.contiguous(), base.reshape(1).contiguous()
-    kernels.require_cuda_int64(x, base)
-    if x.dim() != 2:
-        raise ValueError(f"scale_powers: {tuple(x.shape)}, not (C, n)")
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    kernels.check(kernels.lib("quotient").gl_scale_powers(
-        x.data_ptr(), out.data_ptr(), base.data_ptr(), factor % g.P,
-        x.shape[0], x.shape[1], kernels.stream_ptr(x)), "scale_powers")
-    kernels.count("scale_powers")
-    return out
-
-
-def scale_powers_plain(x: torch.Tensor, base: torch.Tensor, factor: int = 1
-                       ) -> torch.Tensor:
-    pows = gf.powers_plain(base.reshape(()), x.shape[-1])
-    return gf.mul_plain(x, gf.mul_plain(pows, gf.scalar(factor, x.device)))
+# the coset scaling (gl_scale_powers) lives in the field layer, which
+# ntt/ntt.py's coset transforms share; its names stay here for the quotient
+from ..field.gf import scale_powers, scale_powers_plain  # noqa: E402,F401
 
 
 def _inv_plain(x: torch.Tensor) -> torch.Tensor:

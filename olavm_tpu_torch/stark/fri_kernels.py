@@ -33,6 +33,7 @@ from ..field import gf
 from ..field import goldilocks as g
 from ..field import gfe
 from ..field.gfe import GFE, W
+from ..ntt import ntt as dntt
 from ..utils.bits import log2_strict
 
 # csrc/fri.cu's limits of a plan and its K9 segment table
@@ -187,14 +188,19 @@ def fri_quotient(values: torch.Tensor, bank: torch.Tensor, plan: tuple
     if tuple(values.shape) != (len(plan), 2, size):
         raise ValueError(f"fri_quotient: values {tuple(values.shape)}, not "
                          f"({len(plan)}, 2, size)")
+    if size < 2:
+        raise ValueError(f"fri_quotient: a coset of {size} points; "
+                         f"csrc/fri.cu takes 2 or more")
     out = torch.empty((2, size), dtype=torch.int64, device=values.device)
     p = _QuotientPlan()
     p.point[:len(plan)] = [off for _, off in plan]
-    omega = g.primitive_root_of_unity(log2_strict(size))
+    # the coset's points from K1's twiddles of its size: w^j, j < size / 2
+    # (w^{size/2} = -1 gives the other half)
+    tw = dntt.twiddles(log2_strict(size), False, values.device)
     kernels.check(kernels.lib("fri").gl_fri_quotient(
         ctypes.addressof(p), len(plan), values.data_ptr(), bank.data_ptr(),
-        out.data_ptr(), size, SHIFT, omega, kernels.stream_ptr(values)),
-        f"fri_quotient (plan {plan})")
+        tw.data_ptr(), out.data_ptr(), size, SHIFT, g.P - 1,
+        kernels.stream_ptr(values)), f"fri_quotient (plan {plan})")
     kernels.count("fri_quotient")
     return out
 
@@ -279,15 +285,6 @@ def fri_fold(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
     return out
 
 
-def _ext_mul_plain(a: GFE, b: GFE) -> GFE:
-    """gfe.mul on the plain ops (Karatsuba's three products)."""
-    t0 = gf.mul_plain(a.re, b.re)
-    t1 = gf.mul_plain(a.im, b.im)
-    t2 = gf.mul_plain(gf.add_plain(a.re, a.im), gf.add_plain(b.re, b.im))
-    return GFE(gf.add_plain(t0, gf.mul_plain(t1, gf.scalar(W, t1.device))),
-               gf.sub_plain(t2, gf.add_plain(t0, t1)))
-
-
 def _ext_add_plain(a: GFE, b: GFE) -> GFE:
     return GFE(gf.add_plain(a.re, b.re), gf.add_plain(a.im, b.im))
 
@@ -308,7 +305,7 @@ def _fold_chain(mul, add, re, im, bpows) -> torch.Tensor:
 def fri_fold_plain(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
                    ) -> torch.Tensor:
     """Plain version of K12: the chain it replaced on the plain field ops."""
-    return _fold_chain(_ext_mul_plain, _ext_add_plain, re, im, bpows)
+    return _fold_chain(gfe.mul_plain, _ext_add_plain, re, im, bpows)
 
 
 def fri_fold_ops(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor

@@ -144,9 +144,11 @@ class DevicePolynomialBatch:
 
     def query_powers(self, x_indices) -> torch.Tensor:
         """(k, n) power tables of the query points (shared by every batch of
-        a table: the same points, the same degree)."""
-        return gf.power_rows(self.query_points(x_indices),
-                             self.coeffs.shape[1], self.coeffs.device)
+        a table: the same points, the same degree): the points copied to the
+        card without waiting for it, one K13 launch."""
+        points = gf.from_u64(self.query_points(x_indices), self.coeffs.device,
+                             pinned=True)
+        return gf.powers(points, self.coeffs.shape[1])
 
     def query_leaves_dev(self, x_indices, pows=None) -> torch.Tensor:
         """Leaf values for bit-reversed leaf indices -> device (k, C), by

@@ -14,11 +14,13 @@ runs on the given torch device.
               kernels over slices of its constraint sequence, on each
               residue class of the quotient coset, the class's values one
               coset FFT of the coefficients
-  openings  = power-table inner products at zeta and g*zeta (K5)
+  openings  = power tables of zeta and g*zeta (K13) and their inner
+              products with the coefficients (K5)
   FRI       = composition poly formed on the coefficients (K9), one
-              batched coset LDE, the quotient over the coset (K10), fold,
-              re-FFT, extension-leaf trees, the Poseidon PoW grind
-              (K2), query leaves evaluated at their points (K5)
+              batched coset LDE, the quotient over the coset (K10), fold
+              (K12), re-FFT (gl_scale_powers, K1), extension-leaf trees,
+              the Poseidon PoW grind (K2), query leaves evaluated at their
+              points (K13's tables, K5)
 
 On a CUDA device the quotient's constraints launch K6 (and its coset
 scaling and selectors, csrc/quotient.cu), the FRI composition K9 and K10
@@ -437,21 +439,11 @@ def compute_quotient_polys_device(stark, config, trace_batch, zs_batch,
 
 def ext_powers(zb: torch.Tensor, n: int) -> torch.Tensor:
     """(2, n) re and im of [1, z, ..., z^{n-1}] for the extension point z
-    held by the (2,) device tensor zb, by log-doubling: the block [0, m)
-    times z^m gives [m, 2m), z^m squared on the device (olavm_tpu's
-    "extpows" program, olavm_tpu/stark/prover_device.py:461)."""
-    device = zb.device
-    out = gfe.ones((1,), device)
-    zm = gfe.GFE(zb[0], zb[1])  # z^length
-    length = 1
-    while length < n:
-        step = min(length, n - length)
-        nxt = gfe.mul(out[:step], zm)
-        out = gfe.GFE(torch.cat([out.re, nxt.re]), torch.cat([out.im, nxt.im]))
-        length += step
-        if length < n:
-            zm = gfe.mul(zm, zm)
-    return torch.stack([out.re[:n], out.im[:n]])
+    held by the (2,) device tensor zb: one K13 launch on the card
+    (gfe.powers_stacked; olavm_tpu's "extpows" program,
+    olavm_tpu/stark/prover_device.py:461, doubles a table in log2(n)
+    steps)."""
+    return gfe.powers_stacked(gfe.GFE(zb[0], zb[1]), n)
 
 
 def _ext_power_table(z, n: int, device) -> gfe.GFE:
@@ -636,10 +628,7 @@ def fri_composition(*inputs, plan, rate_bits: int):
     lde = dntt.ntt(fk.fri_combine(oracle_coeffs, bank, plan, rate_bits))
     values = fk.fri_quotient(lde, bank, plan)
     del lde
-    size = values.shape[-1]
-    c = cg.scale_powers(dntt.intt_unscaled(values),
-                        gf.scalar(g.inv(fk.SHIFT), bank.device),
-                        g.inv(size))
+    c = dntt.coset_ifft(values, fk.SHIFT)
     return values[0], values[1], c[0], c[1]
 
 
@@ -706,6 +695,13 @@ def fri_fold(coeffs: gfe.GFE, beta, arity: int, mesh=None) -> gfe.GFE:
     mesh whose ranks divide the folded rows, each rank folds its contiguous
     rows and one all_gather, outside the program, gives every rank all of
     them (olavm_tpu/stark/prover_device.py:923-943)."""
+    folded = fri_fold_rows(coeffs, beta, arity, mesh)
+    return gfe.GFE(folded[0], folded[1])
+
+
+def fri_fold_rows(coeffs: gfe.GFE, beta, arity: int, mesh=None
+                  ) -> torch.Tensor:
+    """fri_fold as one (2, m / arity) tensor of re and im rows."""
     beta = ge.t(beta)
     pws = [(1, 0)]
     for _ in range(1, arity):
@@ -719,13 +715,11 @@ def fri_fold(coeffs: gfe.GFE, beta, arity: int, mesh=None) -> gfe.GFE:
         return prog(re, im, bpows)
 
     if mesh is not None and rows % psh.coords(mesh)[1] == 0:
-        out = psh.shard_map_cat(
+        return psh.shard_map_cat(
             mesh, "fold", rows, lambda lo, hi: fold(
                 coeffs.re[lo * arity:hi * arity],
                 coeffs.im[lo * arity:hi * arity]), dim=1)
-        return gfe.GFE(out[0], out[1])
-    folded = fold(coeffs.re, coeffs.im)
-    return gfe.GFE(folded[0], folded[1])
+    return fold(coeffs.re, coeffs.im)
 
 
 def fold_stacked(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
@@ -736,17 +730,16 @@ def fold_stacked(re: torch.Tensor, im: torch.Tensor, bpows: torch.Tensor
     return fk.fri_fold(re, im, bpows)
 
 
-def fri_refft(coeffs: gfe.GFE, shift: int) -> gfe.GFE:
-    """The folded polynomial's values on the next coset, shift * H (one
-    coset FFT of its re and im parts): olavm_tpu's "fri_refft" program
+def fri_refft(rows: torch.Tensor, shift: int) -> gfe.GFE:
+    """The folded polynomial's values on the next coset, shift * H: one
+    coset FFT of the (2, m) re and im rows of its coefficients (the shift
+    by value to gl_scale_powers, then K1), olavm_tpu's "fri_refft" program
     (olavm_tpu/stark/prover_device.py:954), keyed by the size and the
     shift, a constant of the round."""
-    def refft(re, im):
-        v = dntt.coset_fft(torch.stack([re, im]), gf.scalar(shift, re.device))
-        return v[0], v[1]
-
-    prog = jitcache.cached_jit(("fri_refft", coeffs.shape[0], shift), refft)
-    return gfe.GFE(*prog(coeffs.re, coeffs.im))
+    prog = jitcache.cached_jit(("fri_refft", rows.shape[1], shift),
+                               functools.partial(dntt.coset_fft, shift=shift))
+    v = prog(rows)
+    return gfe.GFE(v[0], v[1])
 
 
 def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
@@ -769,9 +762,10 @@ def fri_proof_device(initial_oracles, coeffs: gfe.GFE, values: gfe.GFE,
         trees.append(tree)
 
         beta = ge.t(challenger.get_extension_challenge())
-        coeffs = fri_fold(coeffs, beta, arity, mesh)
+        folded = fri_fold_rows(coeffs, beta, arity, mesh)
+        coeffs = gfe.GFE(folded[0], folded[1])
         shift = pow(shift, arity, g.P)
-        values = fri_refft(coeffs, shift)
+        values = fri_refft(folded, shift)
 
     final_len = coeffs.shape[0] >> config.rate_bits
     final_coeffs = gfe.to_u64_pair(coeffs[:final_len])

@@ -265,7 +265,7 @@ def cached_jit(key, fn) -> Program:
 def stats() -> dict:
     """Per key (its repr), since its program was made: captures, graphs
     dropped (begin_prove), replays, the kernel launches those replays ran
-    (in all and by kernel), capture seconds; and of the graphs it holds now: graph nodes, the bytes
+    (in all and by kernel), capture seconds; and of the graphs it holds now: graph nodes, outputs, the bytes
     their captures added to the shared pool, the kernel launches of one
     replay of each (summed over the key's input shapes), in all and by
     kernel."""
@@ -279,6 +279,8 @@ def stats() -> dict:
             "replays": prog.replays,
             "capture_seconds": prog.capture_seconds,
             "nodes": sum(g.nodes for g in graphs),
+            # each output's copy into its buffer is one node of the graph
+            "outputs": sum(len(g.outputs) for g in graphs),
             "pool_bytes": sum(g.pool_bytes for g in graphs),
             "launches": sum(sum(g.launches.values()) for g in graphs),
             "kernels": {k: n for k in kernels.LAUNCHES

@@ -4,6 +4,9 @@ absorb kernels also against the one-shot leaf kernels, and the streamed
 commit against the same commit on the CPU), and the ToySystem proof through
 the kernels equal to olavm_tpu's host proof.
 
+K13 (power tables) in both fields, on a row of bases and on one, and in the
+extpows program; the coset transforms through gl_scale_powers against the
+CPU path; K10 on one to four batches from 2 to 2^23 points.
 K7 (inversion) and K8 (the grand-product scan) are also checked on all
 zeros, a zero in every chunk, lengths around a tile and inside a CUDA
 graph replayed on other inputs; K11 (a CTL Z's row combination) on every
@@ -265,12 +268,14 @@ def test_toy_proof_through_kernels_equals_host(dev):
     assert tser(port) == serialize_all_proof(host)
     # ToySystem's commits have at most 4 columns (leaves that are their own
     # digests), so the streamed absorb runs only in the wider tests below;
-    # K7's extension entry left the prove with K10, which inverts its norms
+    # K7's extension entry left the prove with K10, which inverts its norms,
+    # and the sub kernel with K13 (its last launches were the extension
+    # products of the openings' power tables)
     blake3 = {k: v for k, v in kernels.LAUNCHES.items()
               if not k.startswith("poseidon_")
-              and k not in ("blake3_absorb", "gf_ext_inv")}
+              and k not in ("blake3_absorb", "gf_ext_inv", "gf_sub")}
     assert all(v > 0 for v in blake3.values()), kernels.LAUNCHES
-    assert kernels.LAUNCHES["gf_ext_inv"] == 0
+    assert kernels.LAUNCHES["gf_ext_inv"] == kernels.LAUNCHES["gf_sub"] == 0
 
 
 def test_toy_poseidon_proof_through_kernels_equals_host(dev):
@@ -732,6 +737,110 @@ def test_prefix_prod_kernel_in_a_graph_replays(dev):
 
 
 # ---------------------------------------------------------------------------
+# K13, power tables (csrc/powers.cu), and the coset transforms through
+# gl_scale_powers
+# ---------------------------------------------------------------------------
+
+POWER_BASES = [0, 1, g.P - 1, 1 << 32, 0xFFFFFFFF, 1234567890123456789 % g.P]
+EXT_POWER_BASES = [(0, 0), (1, 0), (g.P - 1, 0), (1 << 32, 0), (0, 1),
+                   (0, g.P - 1), (123456789, g.P - 5), (g.P - 1, g.P - 1)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 33, 4095, 4097, 1 << 20,
+                               (1 << 23) + 3])
+def test_powers_kernel_matches_plain(dev, n):
+    """Both fields, a row of bases and one (a host int made a 0-dim
+    tensor), edge bases, one launch a table."""
+    from olavm_tpu_torch.field import gfe
+
+    bases = gf.from_u64(POWER_BASES, dev)
+    before = kernels.LAUNCHES["powers"]
+    assert torch.equal(gf.powers(bases, n), gf.powers_plain(bases, n))
+    assert kernels.LAUNCHES["powers"] == before + 1
+    for b in POWER_BASES[2:4]:
+        assert torch.equal(gf.powers(b, n, dev),
+                           gf.powers_plain(gf.scalar(b, dev), n))
+        assert torch.equal(gf.powers(gf.scalar(b, dev), n),
+                           gf.powers_plain(gf.scalar(b, dev), n))
+    for b in EXT_POWER_BASES:
+        base = gfe.from_u64_pair(np.asarray(b, dtype=np.uint64), dev)
+        before = kernels.LAUNCHES["ext_powers"]
+        got = gfe.powers_stacked(base, n)
+        assert kernels.LAUNCHES["ext_powers"] == before + 1
+        want = gfe.powers_plain(base, n)
+        assert torch.equal(got, torch.stack([want.re, want.im])), b
+
+
+def test_powers_kernel_refuses_what_it_does_not_take(dev):
+    with pytest.raises(TypeError):
+        gf.powers(torch.ones(3, dtype=torch.int32, device=dev), 8)
+    with pytest.raises(ValueError):
+        gf.powers(torch.ones((2, 2), dtype=torch.int64, device=dev), 8)
+
+
+def test_extpows_and_refft_programs_are_one_kernel_each(dev):
+    """The openings' power table (the extpows program) is one K13 launch
+    and the FRI re-FFT one gl_scale_powers and one K1 launch: each graph's
+    nodes are those launches and its outputs' copies (no cat, fill or K3),
+    and a replay under another challenge equals the plain version."""
+    import functools
+
+    from olavm_tpu_torch.field import gfe
+    from olavm_tpu_torch.stark import prover_device as tpd
+    from olavm_tpu_torch.utils import jitcache
+
+    jitcache.clear()
+    n = 1 << 12
+    prog = jitcache.cached_jit(("extpows", n),
+                               functools.partial(tpd.ext_powers, n=n))
+    for z in ((5, 7), (g.P - 1, 3), (0, 1)):
+        zb = gf.from_u64(list(z), dev)
+        want = gfe.powers_plain(gfe.GFE(zb[0], zb[1]), n)
+        assert torch.equal(prog(zb), torch.stack([want.re, want.im])), z
+    rows = convert.from_u64(_rand((2, 1 << 10), 3), dev)
+    for shift in (7, 7 ** 16 % g.P):
+        for _ in range(2):
+            got = tpd.fri_refft(rows, shift)
+            want = tntt.ntt_plain(gf.scale_powers_plain(rows, shift))
+            assert torch.equal(got.re, want[0]) and torch.equal(got.im,
+                                                                want[1])
+    import chip_smoke
+
+    for key, st in jitcache.stats().items():
+        assert st["replays"] >= 1
+        assert st["kernels"] == chip_smoke.PROGRAM_KERNELS[st["tag"]], st
+        assert st["nodes"] == (chip_smoke.kernel_nodes(key, st["kernels"])
+                               + st["outputs"]), st
+    jitcache.clear()
+
+
+@pytest.mark.parametrize("C,log_n", [(1, 1), (3, 5), (17, 10), (16, 20)])
+def test_coset_transforms_on_the_card_equal_cpu(dev, C, log_n):
+    """scale_by_powers, coset_fft (host and device shifts), coset_ifft,
+    coset_lde and intt on the card against the CPU path, with no K3, add,
+    sub or power table: the scaling is one gl_scale_powers launch each."""
+    n = 1 << log_n
+    x = _rand((C, n), C + log_n)
+    x[0, 0] = g.P - 1
+    t, c = convert.from_u64(x, dev), convert.from_u64(x, "cpu")
+    for log in (log_n, log_n + 3):  # the twiddles, built once a size
+        tntt.twiddles(log, False, dev)
+        tntt.twiddles(log, True, dev)
+    kernels.reset_launches()
+    calls = (lambda a: tntt.scale_by_powers(a, 5),
+             lambda a: tntt.coset_fft(a),
+             lambda a: tntt.coset_fft(a, gf.scalar(3, a.device)),
+             lambda a: tntt.coset_ifft(a),
+             lambda a: tntt.coset_lde(a, 3),
+             lambda a: tntt.intt(a))
+    for k, call in enumerate(calls):
+        assert torch.equal(call(t).cpu(), call(c)), k
+    assert kernels.LAUNCHES["scale_powers"] == len(calls)
+    assert not any(kernels.LAUNCHES[k] for k in ("gf_mul", "gf_add", "gf_sub",
+                                                 "powers", "ext_powers"))
+
+
+# ---------------------------------------------------------------------------
 # K9 and K10, the FRI composition (csrc/fri.cu)
 # ---------------------------------------------------------------------------
 
@@ -775,6 +884,28 @@ def test_fri_kernels_match_plain(dev, log_n, edge):
     coeffs, bank, plan = chip_smoke.fri_case((17, 16, 2), 1, 1 << log_n, rng,
                                              dev, edge)
     _fri_check(coeffs, bank, plan, chip_smoke.FRI_RATE_BITS)
+
+
+@pytest.mark.parametrize("log_size", [1, 2, 5, 13, 23])
+def test_fri_quotient_kernel_at_every_batch_count(dev, log_size):
+    """K10 on one to four batches at cosets from 2 points (one pair) to
+    2^23 (CpuStark's at N=94000), EDGE values and a zero norm."""
+    import chip_smoke
+    from olavm_tpu_torch.stark import fri_kernels as fk
+
+    rng = np.random.default_rng(log_size)
+    size = 1 << log_size
+    for batches in (1, 2, 3, 4):
+        values = convert.from_u64(
+            chip_smoke.edge_values(rng, (batches, 2, size)), dev)
+        bank = chip_smoke.edge_values(rng, 6 * batches)
+        x = fk.SHIFT * pow(g.primitive_root_of_unity(log_size),
+                           int(rng.integers(size)), g.P) % g.P
+        bank[0:2] = (x, 0)
+        bank = convert.from_u64(bank, dev)
+        plan = tuple(((), 6 * b) for b in range(batches))
+        assert torch.equal(fk.fri_quotient(values, bank, plan),
+                           fk.fri_quotient_plain(values, bank, plan)), batches
 
 
 def test_fri_kernels_on_a_toy_proves_composition(dev):

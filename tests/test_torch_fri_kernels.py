@@ -16,7 +16,8 @@ the CPU, exact throughout (tolerance 0: field arithmetic has one answer):
 - csrc/fri.cu built by g++ (the CUDA qualifiers stubbed, every thread of a
   launch run on the host) equals the plain versions at chip_smoke's
   EDGE_VALUES, at sizes that are not a multiple of a thread's columns or
-  points, and with a zero norm;
+  points, odd sizes, and with a zero norm; K10 both on any omega and on
+  K1's twiddles of a power-of-two coset (the card's wrapper);
 - the fold's plain version at arity 2, 4, 8 and 16 equals the op-by-op
   chain it replaced (fri_kernels.fri_fold_ops) and olavm_tpu's
   fold_fn formula on its gfe (powers, products, a tree of sums), and K12
@@ -41,6 +42,7 @@ from olavm_tpu.field import gfe as jgfe
 from olavm_tpu_torch import kernels
 from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.field import goldilocks as g
+from olavm_tpu_torch.ntt import ntt as dntt
 from olavm_tpu_torch.stark import fri_kernels as fk
 from olavm_tpu_torch.stark import prover_device as tpd
 from test_torch_inv_scan import _composition
@@ -209,16 +211,16 @@ static void grid(unsigned blocks, unsigned threads, void (*run)()) {
 }
 static const fri::CombinePlan* g_cplan;
 static const fri::QuotientPlan* g_qplan;
-static const uint64_t *g_bank, *g_values;
+static const uint64_t *g_bank, *g_values, *g_tw;
 static uint64_t* g_out;
 static int64_t g_n, g_size;
-static uint64_t g_shift, g_omega, g_step, g_back;
+static uint64_t g_shift, g_half;
 template <int B> static void combine() {
   fri::combine_kernel<B>(*g_cplan, g_bank, g_out, g_n, g_size, g_shift);
 }
 template <int B> static void quotient() {
-  fri::quotient_kernel<B>(*g_qplan, g_values, g_bank, g_out, g_size, g_shift,
-                          g_omega, g_step, g_back);
+  fri::quotient_kernel<B>(*g_qplan, g_values, g_bank, g_tw, g_out, g_size,
+                          g_shift, g_half);
 }
 extern "C" void host_fri_combine(const void* plan, int batches,
                                  const uint64_t* bank, uint64_t* out,
@@ -243,16 +245,12 @@ extern "C" void host_fri_fold(const uint64_t* re, const uint64_t* im,
 }
 extern "C" void host_fri_quotient(const void* plan, int batches,
                                   const uint64_t* values,
-                                  const uint64_t* bank, uint64_t* out,
-                                  int64_t size, uint64_t shift,
-                                  uint64_t omega) {
+                                  const uint64_t* bank, const uint64_t* tw,
+                                  uint64_t* out, int64_t size, uint64_t shift,
+                                  uint64_t half_step) {
   g_qplan = static_cast<const fri::QuotientPlan*>(plan);
-  g_values = values; g_bank = bank; g_out = out; g_size = size;
-  g_shift = shift; g_omega = omega;
-  const uint64_t threads = static_cast<uint64_t>(
-      (size + fri::QUOTIENT_CHUNK - 1) / fri::QUOTIENT_CHUNK);
-  g_step = fri::host_pow(omega, threads);
-  g_back = fri::host_pow(fri::host_pow(omega, gl::P - 2), threads);
+  g_values = values; g_bank = bank; g_tw = tw; g_out = out; g_size = size;
+  g_shift = shift; g_half = half_step;
   void (*run[])() = {quotient<1>, quotient<2>, quotient<3>, quotient<4>};
   grid(fri::quotient_blocks(size), fri::QUOTIENT_THREADS, run[batches - 1]);
 }
@@ -280,8 +278,8 @@ def fri_host(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
     lib.host_fri_combine.argtypes = [vp, ctypes.c_int, vp, vp, i64, i64, u64]
-    lib.host_fri_quotient.argtypes = [vp, ctypes.c_int, vp, vp, vp, i64, u64,
-                                      u64]
+    lib.host_fri_quotient.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, i64,
+                                      u64, u64]
     lib.host_fri_fold.argtypes = [vp, vp, vp, vp, i64, ctypes.c_int]
     lib.host_fri_combine.restype = lib.host_fri_quotient.restype = None
     lib.host_fri_fold.restype = None
@@ -325,29 +323,65 @@ def test_k9_built_by_gxx_on_one_to_four_batches(fri_host):
                            fk.fri_combine_plain(coeffs, bank, plan, 2))
 
 
-# sizes not a multiple of a thread's points (QUOTIENT_CHUNK = 8) or of a
-# block's, any omega
+def _quotient_host(lib, values, bank, points, shift: int, tw, half_step: int
+                   ) -> torch.Tensor:
+    batches, _, size = values.shape
+    p = fk._QuotientPlan()
+    p.point[:batches] = points
+    got = torch.full((2, size), -1, dtype=torch.int64)
+    tw = tw.contiguous()
+    lib.host_fri_quotient(ctypes.addressof(p), batches,
+                          values.contiguous().data_ptr(), bank.data_ptr(),
+                          tw.data_ptr(), got.data_ptr(), size, shift,
+                          half_step)
+    return got
+
+
+def _quotient_inputs(rng, batches: int, size: int, shift: int, omega: int):
+    """EDGE_VALUES for the values and the bank, batch 0's point a point of
+    the coset (a zero norm there)."""
+    values = gf.from_u64(chip_smoke.edge_values(rng, (batches, 2, size)),
+                         "cpu")
+    bank = chip_smoke.edge_values(rng, 6 * batches + 3)
+    points = [3 + 6 * b for b in range(batches)]
+    x = shift * pow(omega, int(rng.integers(size)), P) % P
+    bank[points[0]:points[0] + 2] = (x, 0)
+    return values, gf.from_u64(bank, "cpu"), points
+
+
+# sizes not a multiple of a thread's pairs of points (QUOTIENT_PAIRS = 8)
+# or of a block's, odd sizes (a last pair of one point), any omega: the
+# pairs' upper points are x w^ceil(size / 2)
 @pytest.mark.parametrize("size", [1, 5, 12, 17, 1000, (1 << 12) + 3])
 @pytest.mark.parametrize("batches", [1, 3, 4])
 def test_k10_built_by_gxx_equals_plain(fri_host, size, batches):
     rng = np.random.default_rng(size * 10 + batches)
     shift, omega = (int(v) for v in rng.integers(1, P, 2, dtype=np.uint64))
-    values = gf.from_u64(chip_smoke.edge_values(rng, (batches, 2, size)),
-                         "cpu")
-    bank = chip_smoke.edge_values(rng, 6 * batches + 3)
-    points = [3 + 6 * b for b in range(batches)]
-    # batch 0's point is a point of the coset: a zero norm there
-    x = shift * pow(omega, int(rng.integers(size)), P) % P
-    bank[points[0]:points[0] + 2] = (x, 0)
-    bank = gf.from_u64(bank, "cpu")
-    p = fk._QuotientPlan()
-    p.point[:batches] = points
-    got = torch.full((2, size), -1, dtype=torch.int64)
-    fri_host.host_fri_quotient(ctypes.addressof(p), batches,
-                               values.contiguous().data_ptr(), bank.data_ptr(),
-                               got.data_ptr(), size, shift, omega)
+    values, bank, points = _quotient_inputs(rng, batches, size, shift, omega)
+    half = (size + 1) // 2
+    tw = gf.from_u64([pow(omega, j, P) for j in range(half)], "cpu")
+    got = _quotient_host(fri_host, values, bank, points, shift, tw,
+                         pow(omega, half, P))
     assert torch.equal(got, fk.quotient_plain(values, bank, points, shift,
                                               omega))
+
+
+# the coset as the card's wrapper gives it: K1's twiddles of the size,
+# w^{size/2} = -1 (the upper points negated), at sizes below one pair a
+# thread, one block's points and past several blocks
+@pytest.mark.parametrize("log_size", [1, 2, 4, 8, 11, 13])
+def test_k10_built_by_gxx_on_the_twiddles(fri_host, log_size):
+    rng = np.random.default_rng(log_size)
+    size = 1 << log_size
+    omega = g.primitive_root_of_unity(log_size)
+    for batches in (2, 3):
+        values, bank, points = _quotient_inputs(rng, batches, size, fk.SHIFT,
+                                                omega)
+        tw = dntt.twiddles(log_size, False, "cpu")
+        got = _quotient_host(fri_host, values, bank, points, fk.SHIFT, tw,
+                             P - 1)
+        plan = tuple(((), off) for off in points)
+        assert torch.equal(got, fk.fri_quotient_plain(values, bank, plan))
 
 
 # ---------------------------------------------------------------------------
