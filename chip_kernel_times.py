@@ -43,7 +43,8 @@ run against constraint_tape.required_ops, ms against its bound), each
 checked against quotient_class_ops, with the SWEEP of its slice budget and
 live values beside the kept constants.
 For `inv` and `scan`, "rows" holds K7 (base field and extension) and K8
-(inclusive and exclusive) at the main path's sizes: CUDA-event ms of
+(inclusive and exclusive; single rows and (rows, n) arrays, those also in
+place) at the main path's sizes: CUDA-event ms of
 back-to-back calls, device ms (torch.profiler; K8's with its scratch's
 fill), the bound (chip_smoke.bound) and its share, and the device ms of the
 K3 chain each replaced on the same inputs (inversion by square and multiply
@@ -92,6 +93,7 @@ one call on one card.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -122,9 +124,13 @@ SHAPES = {
     # composition's LDEs (2^20 to 2^24) in the extension
     "inv": ((1 << 18, 1 << 19, 1 << 21, 1 << 24),
             (1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24)),
-    # K8: the CTL and permutation Zs' lengths at N=94000 and above
-    "scan": (1 << 10, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22,
-             1 << 24),
+    # K8, (rows, n) of one launch: the CTL and permutation Zs' lengths at
+    # N=94000 and above as single rows, and the tables' Zs in one launch
+    # (chip_smoke.SCAN_SHAPES: CpuStark's 78 Zs, a group of 26 of them,
+    # BitwiseStark's 8 permutation batches, ProgramStark's 4 Zs)
+    "scan": ((1, 1 << 10), (1, 1 << 17), (1, 1 << 18), (1, 1 << 19),
+             (1, 1 << 20), (1, 1 << 21), (1, 1 << 22), (1, 1 << 24),
+             (78, 1 << 20), (26, 1 << 20), (8, 1 << 18), (4, 1 << 21)),
     # K9, K10: (trace, Z, quotient) widths, permutation Zs, log2 rows
     "fri": {"N=94000 CpuStark": ((94, 78, 12), 0, 20),
             "K=512 PoseidonStark": ((134, 6, 12), 0, 20),
@@ -422,12 +428,20 @@ def time_inv_scan(kernel: str, gen, cuda_ms) -> dict:
     def k3_scan(x, exclusive):
         y, d = x, 1
         while d < x.shape[-1]:
-            y = gf.mul(y, torch.cat([torch.ones_like(y[:d]), y[:-d]]))
+            y = gf.mul(y, torch.cat([torch.ones_like(y[..., :d]),
+                                     y[..., :-d]], dim=-1))
             d <<= 1
-        return torch.cat([torch.ones_like(y[:1]), y[:-1]]) if exclusive else y
+        if exclusive:
+            return torch.cat([torch.ones_like(y[..., :1]), y[..., :-1]],
+                             dim=-1)
+        return y
 
-    def rand(n):
-        return torch.randint(0, 1 << 62, (n,), generator=gen, device="cuda")
+    def rand(*shape):
+        return torch.randint(0, 1 << 62, shape, generator=gen, device="cuda")
+
+    # the scan in place where gf.prefix_prod takes out= (a checkout before
+    # it took out= times the scan into a new array only)
+    in_place = "out" in inspect.signature(gf.prefix_prod).parameters
 
     cases = []  # (name, call, the K3 chain, bytes, products, sums)
     if kernel == "inv":
@@ -443,14 +457,22 @@ def time_inv_scan(kernel: str, gen, cuda_ms) -> dict:
                           lambda a=a: k3_ext_inv(a), 32 * n,
                           chip_smoke.EXT_INV_PRODUCTS * n, 2 * n))
     else:
-        for n in SHAPES["scan"]:
-            x = rand(n)
+        for rows, n in SHAPES["scan"]:
+            x = rand(rows, n) if rows > 1 else rand(n)
+            shape = f"{rows}x{_log2(n)}" if rows > 1 else _log2(n)
             for ex in (False, True):
-                cases.append((f"{'exclusive' if ex else 'inclusive'} "
-                              f"{_log2(n)}",
+                form = "exclusive" if ex else "inclusive"
+                cases.append((f"{form} {shape}",
                               lambda x=x, ex=ex: gf.prefix_prod(x, exclusive=ex),
-                              lambda x=x, ex=ex: k3_scan(x, ex), 16 * n,
-                              chip_smoke.SCAN_PRODUCTS * n, 0))
+                              lambda x=x, ex=ex: k3_scan(x, ex),
+                              16 * rows * n,
+                              chip_smoke.SCAN_PRODUCTS * rows * n, 0))
+                if in_place and rows > 1:
+                    cases.append((f"{form} {shape} in place",
+                                  lambda x=x, ex=ex: gf.prefix_prod(
+                                      x, exclusive=ex, out=x),
+                                  None, 16 * rows * n,
+                                  chip_smoke.SCAN_PRODUCTS * rows * n, 0))
     rows = {}
     for name, call, chain, nbytes, products, sums in cases:
         least = chip_smoke.bound(
@@ -461,7 +483,8 @@ def time_inv_scan(kernel: str, gen, cuda_ms) -> dict:
                       "bound_ms": least["bound_ms"],
                       "bound_by": least["bound_by"],
                       "share": least["bound_ms"] / dev_ms,
-                      "k3_chain_device_ms": chip_smoke.device_ms(chain, 3)}
+                      "k3_chain_device_ms": (chip_smoke.device_ms(chain, 3)
+                                             if chain else None)}
     return {"rows": rows}
 
 

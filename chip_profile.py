@@ -2,11 +2,12 @@
 """Where a full-size prove of the PyTorch port spends the card's time, with
 the device prover's programs (CUDA graphs) and without them.
 
-    python3 chip_profile.py [--hasher blake3|poseidon]   # needs one CUDA card
+    python3 chip_profile.py [--hasher blake3|poseidon] [--n 94000|376000]
+                                                          # needs one CUDA card
 
 Builds the kernels, then proves the fib-loop fixture at N=94000 (2^20 CPU
-rows, chip_smoke.py's full-size run) with the given Merkle hasher (blake3
-by default) in one process: first without the programs (programs=False,
+rows, chip_smoke.py's full-size run; --n 376000 for 2^22) with the given
+Merkle hasher (blake3 by default) in one process: first without the programs (programs=False,
 the cold prove, before any program exists), then with them (the prove
 that captures them), then four warm proves in turns (without, with, with,
 without), each untraced and timed on the host clock around
@@ -33,7 +34,8 @@ debug mode set to "warn", its warnings caught), in all and by call site
 (the innermost two frames of the port's code, `sync_sites`); the hook
 costs a stack walk a synchronising call. Prints one JSON object
 as the last line and writes the same, with the kernel tables, to
-chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon).
+chip_smoke_out/profile.json (profile_poseidon.json for --hasher poseidon,
+profile_n376000.json and profile_poseidon_n376000.json for --n 376000).
 
 The split: each program call runs inside a profiler range named after its
 tag (`ctlz`, `permz`, `qclass`, `extpows`, `fricomp`, `frifold`,
@@ -42,10 +44,14 @@ of the runtime call that launched it (a kernel launch, or the graph launch
 of a replay), to the range around that call, or to "host" (issued by the
 host outside any program). Per tag it gives, by kernel class (K3, add,
 sub, cat, fill, K7, K8, K9, K10, K11, K12, K13 in both fields, the coset
-scaling, K1, the rest), the launches and device milliseconds;
+scaling, K1, the rest), the launches and device milliseconds, their sum
+("all"), and the same for the copies and memsets on the card by kind
+(memcpy DtoD, HtoD, DtoH, ..., memset) with their bytes, and their sum
+("copies"): a program's copies of its inputs into its buffers are DtoD
+copies of its tag, its outputs' copies are nodes of its graph.
 `split_summary` repeats the openings' power tables (`extpows`), the FRI
-re-FFTs (`fri_refft`) and the K3 launches the host issued outside any
-program.
+re-FFTs (`fri_refft`), the K3 launches the host issued outside any
+program, and each tag's kernels and copies with the sums over tags.
 """
 
 from __future__ import annotations
@@ -82,6 +88,9 @@ KERNEL_CLASSES = (
     ("ntt", re.compile(r"ntt::")),
 )
 PROGRAM_RANGE = "program:"
+# a copy's kind from its trace event's name ("Memcpy DtoD (Device ->
+# Device)", "Memcpy HtoD (Pageable -> Device)", ...)
+MEMCPY_KIND = re.compile(r"Memcpy (\w+)")
 PORT = os.sep + "olavm_tpu_torch" + os.sep
 
 
@@ -105,10 +114,23 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def copy_class(event: dict) -> str | None:
+    """The split's class of a copy or memset event ("memcpy DtoD",
+    "memcpy HtoD", "memcpy DtoH", ..., "memset"), None for any other."""
+    if event.get("cat") == "gpu_memset":
+        return "memset"
+    if event.get("cat") == "gpu_memcpy":
+        m = MEMCPY_KIND.search(event.get("name", ""))
+        return f"memcpy {m.group(1) if m else 'other'}"
+    return None
+
+
 def program_split(trace: dict) -> dict:
-    """{tag: {class: {"launches", "device_ms"}}} of a chrome trace taken
-    with CPU and CUDA activities while every program call ran inside a
-    record_function range "program:<tag>" (see the module's docstring)."""
+    """{tag: {class: {"launches", "device_ms", "bytes"}}} of a chrome trace
+    taken with CPU and CUDA activities while every program call ran inside
+    a record_function range "program:<tag>" (see the module's docstring):
+    the kernel classes, "all" their sum, the copies and memsets by kind
+    (copy_class) and "copies" their sum; a kernel's bytes are 0."""
     import bisect
 
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
@@ -137,19 +159,30 @@ def program_split(trace: dict) -> dict:
                 break
             i -= 1
         launched_in[corr] = tag
-    out = {}
+    out, copies = {}, set()
     for e in events:
-        if e.get("ph") != "X" or e.get("cat") != "kernel":
+        if e.get("ph") != "X":
             continue
-        tag = launched_in.get(e.get("args", {}).get("correlation"),
-                              "unattributed")
+        if e.get("cat") == "kernel":
+            cls = kernel_class(e["name"])
+        else:
+            cls = copy_class(e)
+            if cls is None:
+                continue
+            copies.add(cls)
+        args = e.get("args", {})
+        tag = launched_in.get(args.get("correlation"), "unattributed")
         row = out.setdefault(tag, {}).setdefault(
-            kernel_class(e["name"]), {"launches": 0, "device_ms": 0.0})
+            cls, {"launches": 0, "device_ms": 0.0, "bytes": 0})
         row["launches"] += 1
         row["device_ms"] += e["dur"] / 1e3
+        row["bytes"] += int(args.get("bytes", 0)) if cls in copies else 0
     for tag, rows in out.items():
-        rows["all"] = {"launches": sum(r["launches"] for r in rows.values()),
-                       "device_ms": sum(r["device_ms"] for r in rows.values())}
+        for name, keep in (("all", lambda c: c not in copies),
+                           ("copies", lambda c: c in copies)):
+            picked = [r for c, r in rows.items() if keep(c)]
+            rows[name] = {k: sum(r[k] for r in picked)
+                          for k in ("launches", "device_ms", "bytes")}
     return out
 
 
@@ -157,6 +190,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--hasher", choices=["blake3", "poseidon"],
                     default="blake3", help="Merkle hasher of the prove")
+    ap.add_argument("--n", type=int, choices=[94000, 376000], default=94000,
+                    help="the fixture's N: 94000 (2^20 CPU rows) or 376000 "
+                         "(2^22)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -188,7 +224,7 @@ def main() -> int:
     kernels.build(force=True)
     with tempfile.TemporaryDirectory() as workdir:
         trace_dir = os.path.join(workdir, "full")
-        chip_smoke.prepare(chip_smoke.FULL_N, workdir, trace_dir)
+        chip_smoke.prepare(args.n, workdir, trace_dir)
         traces, public_values, ola, _ = chip_smoke.load_traces(trace_dir)
     config = StarkConfig.standard_fast_config()
     config.merkle_hasher = args.hasher
@@ -234,6 +270,7 @@ def main() -> int:
                 scopes[key] = scopes.get(key, 0.0) + secs
         host = sum(kernels.HOST_LAUNCHES.values())
         by_tag = chip_smoke.program_counts(before, jitcache.stats())["by_tag"]
+        replays = {tag: t["replays"] for tag, t in by_tag.items()}
         run = {
             "programs": programs, "seconds": seconds,
             "host_issued_launches": host,
@@ -242,6 +279,7 @@ def main() -> int:
             "sync_sites": dict(sorted(syncs.items(), key=lambda kv: -kv[1])),
             "replayed_launches": sum(kernels.LAUNCHES.values()) - host,
             "launches": dict(kernels.LAUNCHES),
+            "replays_by_tag": replays,
             # the quotient's programs: launches their replays ran, and of
             # one replay of each by kernel
             "quotient_replayed_launches": by_tag.get(
@@ -316,7 +354,7 @@ def main() -> int:
     digests = {r["proof_sha256"] for r in (*runs, split_run)}
     if len(digests) != 1:
         raise AssertionError(f"the proves differ: {sorted(digests)}")
-    result = {"card": smi, "torch": torch.__version__, "N": chip_smoke.FULL_N,
+    result = {"card": smi, "torch": torch.__version__, "N": args.n,
               "merkle_hasher": args.hasher, "proof_sha256": digests.pop(),
               "k6_build_seconds": k6_build_seconds}
     for mode, programs in (("eager", False), ("programs", True)):
@@ -338,6 +376,8 @@ def main() -> int:
             "sync_calls": [r["sync_calls"] for r in warm],
             "sync_sites": warm[-1]["sync_sites"],
             "launches": [sum(r["launches"].values()) for r in warm],
+            "launches_by_kernel": warm[-1]["launches"],
+            "replays_by_tag": warm[-1]["replays_by_tag"],
             "quotient_replayed_launches": [r["quotient_replayed_launches"]
                                            for r in warm],
             "quotient_kernels_one_replay_each": warm[-1]["quotient_kernels"],
@@ -351,7 +391,14 @@ def main() -> int:
     result["split_summary"] = {
         **{tag: split.get(tag, {}).get("all") for tag in ("extpows",
                                                           "fri_refft")},
-        "host_k3": split.get("host", {}).get("gf_mul")}
+        "host_k3": split.get("host", {}).get("gf_mul"),
+        # per tag: the kernels, and the copies and memsets (each program's
+        # input copies, its outputs' copies, the host's uploads)
+        "kernels": {tag: rows["all"] for tag, rows in split.items()},
+        "copies": {tag: rows["copies"] for tag, rows in split.items()},
+        "kernels_ms": sum(r["all"]["device_ms"] for r in split.values()),
+        "copies_ms": sum(r["copies"]["device_ms"] for r in split.values()),
+        "copies_bytes": sum(r["copies"]["bytes"] for r in split.values())}
     result["cold_eager_peak_memory_bytes"] = runs[0]["peak_memory_bytes"]
     result["cold_eager_peak_reserved_bytes"] = runs[0]["peak_reserved_bytes"]
     result["program_memory_bytes"] = runs[-1]["program_memory_bytes"]
@@ -361,6 +408,7 @@ def main() -> int:
     for tag, rows in sorted(split.items(), key=lambda kv: -kv[1]["all"]["device_ms"]):
         print(f"split {tag:12s} " + "  ".join(
             f"{c} {r['launches']} / {r['device_ms']:.2f} ms"
+            + (f" / {r['bytes'] / 1e9:.3f} GB" if r["bytes"] else "")
             for c, r in sorted(rows.items())), file=sys.stderr)
     for mode in ("eager", "programs"):
         for row in traced[mode]["top_kernels"]:
@@ -368,7 +416,8 @@ def main() -> int:
                   f"{row['kernel']}", file=sys.stderr)
     out_dir = os.path.join(ROOT, "chip_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
-    name = "profile.json" if args.hasher == "blake3" else "profile_poseidon.json"
+    name = ("profile" + ("" if args.hasher == "blake3" else "_poseidon")
+            + ("" if args.n == chip_smoke.FULL_N else f"_n{args.n}") + ".json")
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump({**result, "runs": runs,
                    "top_kernels": {m: traced[m]["top_kernels"]

@@ -29,13 +29,18 @@ without printing a result:
    K7, inversion, in the base field at 2^21 (the permutation Z's) and in
    the extension at 2^24 (the largest LDE of the FRI composition, which
    inverted with it until K10), and K8, the grand-product scan, inclusive
-   and exclusive at 2^21, on two rows and at lengths 1, 3 and a tile + 1,
-   each with edge values and zeros (all zeros, a zero in every chunk of a
-   thread); K9 and K10, the FRI composition's combine and quotient passes,
-   at the composition's shapes of CpuStark at N=94000 and PoseidonStark at
-   K=512 (n = 2^20, an LDE of 2^23, three batches) and on edge values with
-   a zero norm, and the composition they make against the op-by-op chain
-   it replaced (fri_composition_ops); K11, a CTL Z's row combination, on
+   and exclusive, into a new array and in place, at the main path's
+   shapes (SCAN_SHAPES: CpuStark's 78 CTL Zs at 2^20 in one launch and in
+   a group of 26, BitwiseStark's 8 permutation batches at 2^18,
+   ProgramStark's 4 Zs at 2^21, single rows) and at lengths 1, 3 and a
+   tile + 1, each with edge values and zeros (all zeros, a zero in every
+   chunk of a thread), each SCAN_SHAPES shape timed; K9 and K10, the FRI
+   composition's combine and quotient passes, at the composition's shapes
+   of CpuStark at N=94000 and N=376000 and PoseidonStark at K=512 (n =
+   2^20 or 2^22, an LDE of 8 n, three batches) and on edge values with a
+   zero norm, K9 timed at each, and the composition they make against the
+   op-by-op chain it replaced (fri_composition_ops); K11, a CTL Z's row
+   combination, on
    the widest view of CpuStark (2^20 rows) and ProgramStark (2^21) at
    N=94000 and of PoseidonStark at K=512 (2^20 rows, 25 trace columns),
    on every view at 2^10 rows of edge values (filters of 0, 1, 2 and
@@ -121,7 +126,10 @@ log-doubling power table on a CUDA tensor (the chains K7-K13 replaced
 refuse one during the prove), no gf.power_rows outside ntt.twiddles, no
 graph node of an openings' power table (extpows) or FRI re-FFT
 (fri_refft) program but its kernels (K13; gl_scale_powers and K1) and its
-outputs' copies (so no K3, add, sub, cat or fill), and its leaf and absorb
+outputs' copies (so no K3, add, sub, cat or fill), no graph node of a
+table's CTL Zs (ctlz: K11 a view, one K8 and its scratch's fill) or
+permutation batches (permz: the num and den chains' K3, add and fills,
+one K7, K3 and K8) but those (program_kernels), and its leaf and absorb
 kernels as often as its commits' shapes need. Each records prove and verify seconds
 (a group verifies on rank 0), peak device memory and the host's peak
 resident memory.
@@ -1098,6 +1106,18 @@ EXT_INV_PRODUCTS = INV_PRODUCTS + 3 + 2
 SCAN_PRODUCTS = 1
 # K8's tile, csrc/scan.cu's THREADS * ITEMS
 SCAN_TILE = 2048
+# K8's shapes on the main path: (rows, n) of one launch. At N=94000
+# CpuStark's 78 CTL Zs are three groups of 26 (ctl_device.ctl_groups),
+# BitwiseStark's permutation batches 8 rows of 2^18, ProgramStark's 4 CTL
+# Zs and 2 batches rows of 2^21; the rest are single rows or fewer,
+# shorter rows. (78, 2^20) is CpuStark's Zs in one launch.
+SCAN_SHAPES = {"CpuStark's Zs, one group": (26, 1 << 20),
+               "CpuStark's Zs": (78, 1 << 20),
+               "BitwiseStark's batches": (8, 1 << 18),
+               "ProgramStark's Zs": (4, 1 << 21),
+               "one row of 2^21": (1, 1 << 21),
+               "one row of 2^17": (1, 1 << 17)}
+SCAN_TIMED = "CpuStark's Zs, one group"
 # K7's points a thread, csrc/gf_inv.cu's CHUNK and EXT_CHUNK
 INV_CHUNK, EXT_INV_CHUNK = 16, 8
 
@@ -1108,10 +1128,11 @@ def check_inv_scan_kernels(device, rng) -> dict:
     them in the extension), all zeros and a zero in every chunk of a thread,
     at the main path's shapes: the permutation Z's inversion at 2^21
     (ProgramStark's trace), the FRI composition's extension inversion at
-    2^24 (its largest LDE), the scan at 2^21 inclusive and exclusive, on two
-    rows of 2^20 and at lengths 1, 3 and a tile + 1, each also at small
-    lengths; timed by device time (torch.profiler: the scan's time is its
-    scratch's fill and its launch)."""
+    2^24 (its largest LDE), the scan at SCAN_SHAPES inclusive and
+    exclusive, into a new array and in place, and at lengths 1, 3 and a
+    tile + 1; timed by device time (torch.profiler: the scan's time is its
+    scratch's fill and its launch), the scan at every SCAN_SHAPES shape in
+    place."""
     import numpy as np
     import torch
 
@@ -1188,10 +1209,14 @@ def check_inv_scan_kernels(device, rng) -> dict:
     del a
     torch.cuda.empty_cache()
 
-    # K8: lengths around a tile, two rows, then 2^21 both forms
+    # K8: lengths around a tile and two rows, then the main path's shapes
+    # (SCAN_SHAPES: a table's CTL Zs in one launch, its permutation batches,
+    # single rows), each inclusive and exclusive, into a new array and in
+    # place
     err = 0
     shapes = [(1, 1), (1, 3), (1, SCAN_TILE + 1), (1, 40 * SCAN_TILE + 7),
-              (2, 1 << 20), (1, 1 << 21)]
+              (3, 5 * SCAN_TILE + 1), *SCAN_SHAPES.values()]
+    timed = {}
     for rows, n in shapes:
         x = rng.integers(0, gf.P, (rows, n), dtype=np.uint64)
         x.reshape(-1)[:min(x.size, len(edge))] = edge[:x.size]
@@ -1199,19 +1224,38 @@ def check_inv_scan_kernels(device, rng) -> dict:
             x[1, n // 2] = 0  # the rest of that row's products are 0
         t = gf.from_u64(x, device)
         for exclusive in (False, True):
-            err = max(err, max_abs_err(
-                gf.prefix_prod(t, exclusive=exclusive),
-                gf.prefix_prod_plain(t, exclusive=exclusive)))
-    t = t[0]
-    ms = device_ms(lambda: gf.prefix_prod(t), 20)
-    excl_ms = device_ms(lambda: gf.prefix_prod(t, exclusive=True), 20)
-    plain_ms = cuda_ms(lambda: gf.prefix_prod_plain(t), 3)
-    record("prefix_prod", err, ms, plain_ms,
-           bound(16 * n, SCAN_PRODUCTS * OPS_MUL * n,
-                 SCAN_PRODUCTS * MUL_PRODUCT * n),
-           f"inclusive and exclusive at {shapes} (edge values, a zero); "
-           f"times at 2^21 inclusive, exclusive {excl_ms:.4f} ms")
-    results["prefix_prod"]["exclusive_ms"] = excl_ms
+            want = gf.prefix_prod_plain(t, exclusive=exclusive)
+            err = max(err, max_abs_err(gf.prefix_prod(t, exclusive=exclusive),
+                                       want))
+            y = t.clone()
+            gf.prefix_prod(y, exclusive=exclusive, out=y)
+            err = max(err, max_abs_err(y, want))
+            del want, y
+        name = next((k for k, v in SCAN_SHAPES.items() if v == (rows, n)),
+                    None)
+        if name is not None:
+            y = t.clone()
+            ms = device_ms(lambda: gf.prefix_prod(y, out=y), 20)
+            excl_ms = device_ms(lambda: gf.prefix_prod(
+                y, exclusive=True, out=y), 20)
+            timed[name] = {"ms": ms, "exclusive_ms": excl_ms,
+                           "bound_ms": bound(16 * rows * n, 0)["bound_ms"]}
+            log(f"  prefix_prod at {name} ({rows}, {n}) in place: {ms:.4f} ms, "
+                f"exclusive {excl_ms:.4f} ms, bound "
+                f"{timed[name]['bound_ms']:.4f} ms")
+            del y
+        del t
+        torch.cuda.empty_cache()
+    rows, n = SCAN_SHAPES[SCAN_TIMED]
+    t = gf.from_u64(rng.integers(0, gf.P, (rows, n), dtype=np.uint64), device)
+    plain_ms = cuda_ms(lambda: gf.prefix_prod_plain(t), 1)
+    record("prefix_prod", err, timed[SCAN_TIMED]["ms"], plain_ms,
+           bound(16 * rows * n, SCAN_PRODUCTS * OPS_MUL * rows * n,
+                 SCAN_PRODUCTS * MUL_PRODUCT * rows * n),
+           f"inclusive and exclusive, out of place and in place, at "
+           f"{shapes} (edge values, a zero); times at {SCAN_TIMED} "
+           f"({rows}, {n}) in place")
+    results["prefix_prod"]["times"] = timed
     del t
     torch.cuda.synchronize()
     return results
@@ -1530,7 +1574,8 @@ def check_lazy_sums(device, rng) -> dict:
 # follow them) and log2 of the rows, of CpuStark at N=94000 and of
 # PoseidonStark at K=512
 FRI_SHAPES = {"N=94000 CpuStark": ((94, 78, 12), 0, 20),
-              "K=512 PoseidonStark": ((134, 6, 12), 0, 20)}
+              "K=512 PoseidonStark": ((134, 6, 12), 0, 20),
+              "N=376000 CpuStark": ((94, 78, 12), 0, 22)}
 FRI_RATE_BITS = 3
 
 
@@ -1582,17 +1627,26 @@ def fri_case(widths, num_perm: int, n: int, rng, device, edge: bool = False):
 
 def fri_combine_bound(plan, n: int, rate_bits: int) -> dict:
     """K9's least time: each row that a batch reads once (8 bytes a
-    column), the (B, 2, size) output written; two products a row, batch and
-    column into 160-bit sums, each sum reduced once and times shift^j, and
-    shift's next power a column."""
+    column), the (B, 2, size) output written; two products a row and
+    column for each distinct run of alpha powers that reads it (batches
+    whose plan shares a run's bank words share its products), added into
+    each batch's 160-bit sums (batch 0's rows that nest batch 1's once,
+    into batch 1's: fri_kernels.nested), each sum reduced once and times
+    shift^j, and shift's next power a column."""
+    from olavm_tpu_torch.stark import fri_kernels as fk
+
     rows = {(oi, p0 + r) for runs, _ in plan for oi, p0, k, _ in runs
             for r in range(k)}
+    products = 2 * n * len({(oi, p0 + r, roff + r) for runs, _ in plan
+                            for oi, p0, k, roff in runs for r in range(k)})
     terms = 2 * n * sum(k for runs, _ in plan for _, _, k, _ in runs)
+    if len(plan) > 1 and fk.nested(fk.segments(plan)):
+        terms -= 2 * n * sum(k for _, _, k, _ in plan[1][0])
     sums = 2 * len(plan) * n
     return bound(8 * n * len(rows) + 16 * len(plan) * (n << rate_bits),
-                 terms * (OPS_PRODUCT + OPS_ACCUMULATE)
+                 products * OPS_PRODUCT + terms * OPS_ACCUMULATE
                  + sums * (OPS_REDUCE_WIDE + OPS_MUL) + n * OPS_MUL,
-                 (terms + sums + n) * MUL_PRODUCT)
+                 (products + sums + n) * MUL_PRODUCT)
 
 
 # K10's work a point of batch b (csrc/fri.cu): the norm's square, its
@@ -1622,13 +1676,13 @@ def fri_quotient_bound(batches: int, size: int) -> dict:
 
 def check_fri_kernels(device, rng) -> dict:
     """K9 (fri_combine) and K10 (fri_quotient) against their plain versions,
-    exactly, at the composition's shapes of CpuStark at N=94000 and of
-    PoseidonStark at K=512 (FRI_SHAPES: n = 2^20, an LDE of 2^23, the three
-    batches as the prove plans them) and on EDGE_VALUES with a zero norm
-    at n = 2^10; the whole composition (fri_composition: K9, K1, K10, K1
-    inverse, the coset scaling) against fri_composition_ops, the op-by-op
-    chain it replaced, at both shapes. Timed by CUDA events at CpuStark's
-    shape."""
+    exactly, at the composition's shapes of CpuStark at N=94000 and
+    N=376000 and of PoseidonStark at K=512 (FRI_SHAPES: n = 2^20 or 2^22,
+    an LDE of 8 n, the three batches as the prove plans them) and on
+    EDGE_VALUES with a zero norm at n = 2^10; the whole composition
+    (fri_composition: K9, K1, K10, K1 inverse, the coset scaling) against
+    fri_composition_ops, the op-by-op chain it replaced, at those shapes.
+    Timed by CUDA events at CpuStark's N=94000 shape, K9 at each shape."""
     import torch
 
     from olavm_tpu_torch.ntt import ntt as dntt
@@ -1636,6 +1690,7 @@ def check_fri_kernels(device, rng) -> dict:
     from olavm_tpu_torch.stark import prover_device as tpd
 
     results, errs, timed = {}, {"fri_combine": 0, "fri_quotient": 0}, {}
+    k9_times = {}
     cases = [(name, (*shape[:2], 1 << shape[2]), False)
              for name, shape in FRI_SHAPES.items()]
     cases.append(("edge values, a zero norm", ((5, 17, 3), 1, 1 << 10), True))
@@ -1661,6 +1716,15 @@ def check_fri_kernels(device, rng) -> dict:
                 raise AssertionError(f"fri_composition at {name} disagrees "
                                      f"with fri_composition_ops")
             del got, want
+        if not edge:
+            # K9 alone at each shape, by CUDA events
+            k9_times[name] = {
+                "ms": cuda_ms(lambda: fk.fri_combine(
+                    coeffs, bank, plan, FRI_RATE_BITS), 10),
+                "bound_ms": fri_combine_bound(plan, n,
+                                              FRI_RATE_BITS)["bound_ms"]}
+            log(f"  fri_combine at {name}: {k9_times[name]['ms']:.4f} ms, "
+                f"bound {k9_times[name]['bound_ms']:.4f} ms")
         if not timed:
             timed = {"coeffs": coeffs, "bank": bank, "plan": plan, "lde": lde,
                      "n": n, "name": name}
@@ -1701,6 +1765,7 @@ def check_fri_kernels(device, rng) -> dict:
             f"{least['bound_by']} ({least['bound_ms'] / ms:.0%}; {checked})")
         if errs[name] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
+    results["fri_combine"]["times"] = k9_times
     log(f"  the composition at {timed['name']}: {comp_ms:.4f} ms (the "
         f"op-by-op chain {ops_ms:.4f})")
     del timed, coeffs, lde
@@ -2479,9 +2544,36 @@ NOT_IN_FRIFOLD = ("gf_mul", "gf_add", "gf_sub")
 # (K13 took the place of a K3, cat and squaring chain; the re-FFT's coset
 # scaling is gl_scale_powers with no power table): a graph of these
 # programs holds those launches and its outputs' copies and no other node
-# (a cat, a fill or a copy would be one)
+# (a cat, a fill or a copy would be one); program_kernels adds the grand
+# products' programs
 PROGRAM_KERNELS = {"extpows": {"ext_powers": 1},
                    "fri_refft": {"scale_powers": 1, "ntt": 1}}
+
+
+def program_kernels(tag: str, key: str):
+    """What the graph of a program (`key` as jitcache.stats() gives it)
+    must hold besides its outputs' copies: ({kernel: launches}, the fills
+    and copies among its nodes), or None where it is not checked. A table's
+    CTL Zs (ctlz): K11 a view into its row, one K8 launch and the fill of
+    K8's counter and flags. Its permutation batches (permz): each batch's
+    num and den chains (a K3 and an add a column of a pair, beta's next
+    power, a product a chain an instance; a fill of 1 a chain and one of w
+    an instance; each chain's copy into its row), then one K7, one K3 and
+    one K8 launch with its fill."""
+    if tag in PROGRAM_KERNELS:
+        return PROGRAM_KERNELS[tag], 0
+    k = ast.literal_eval(key)
+    if tag == "ctlz":
+        return {"ctl_combine": len(k[2]), "prefix_prod": 1}, 1
+    if tag == "permz":
+        meta = k[4]
+        pairs = sum(len(column_pairs) for batch in meta
+                    for column_pairs, _ in batch)
+        instances = sum(len(batch) for batch in meta)
+        return ({"gf_mul": 3 * pairs + 2 * instances + 1,
+                 "gf_add": 2 * pairs, "gf_inv": 1, "prefix_prod": 1},
+                4 * len(meta) + instances + 1)
+    return None
 PATH_KERNELS = {
     "blake3": SHARED_KERNELS + ("blake3_leaves", "blake3_level",
                                 "blake3_absorb"),
@@ -2856,14 +2948,16 @@ def run() -> int:
                 raise AssertionError(f"{label}: {tag} programs launch "
                                      f"{refused}: {stray}")
         for key, st in jitcache.stats().items():
-            want = PROGRAM_KERNELS.get(st["tag"])
+            want = program_kernels(st["tag"], key)
             if want is not None and st["nodes"] and (
-                    st["kernels"] != want or st["nodes"]
-                    != kernel_nodes(key, st["kernels"]) + st["outputs"]):
+                    st["kernels"] != want[0] or st["nodes"]
+                    != kernel_nodes(key, st["kernels"]) + want[1]
+                    + st["outputs"]):
                 raise AssertionError(
                     f"{label}: program {key} launches {st['kernels']} in "
                     f"{st['nodes']} graph nodes with {st['outputs']} "
-                    f"outputs, not {want} and their copies")
+                    f"outputs, not {want[0]}, {want[1]} fills and their "
+                    f"copies")
         rep["host_peak_resident_bytes"] = host_peak_resident()
         rep["merkle_hashing"] = check_path_launches(
             launches, hasher, prepared[2], rep["table_shapes"])

@@ -18,17 +18,41 @@
 // LDE (K1 forward). Bound: memory, each row read once for every batch that
 // uses it (the trace and Z rows feed batches 0 and 1, the CTL Zs all three)
 // and B * 2 * size words written; the products (two a row and batch, some
-// 22 instructions each with their sums) come close to it, and on the card
-// they hold it (PERF.md). So a thread owns COMBINE_COLS columns,
-// neighbouring threads on neighbouring columns (each load coalesced),
-// reads each row once, keeps 2 B unreduced 160-bit sums a column
-// (gl::acc_add, as csrc/constraints.cuh) and reduces each once; shift^j is
-// one exponentiation a thread and one product a column (as
-// gl_scale_powers).
+// 22 instructions each with their sums) come close to it. So the loads
+// must stay in flight while the products run: about 15-20 KB on each SM
+// to reach the card's rate, more than a thread's registers hold beside its
+// sums.
+// - A block owns a strip of COMBINE_STRIP columns, a thread 2 neighbouring
+//   columns (one 16-byte word of each row; neighbouring threads on
+//   neighbouring words). It walks the plan's rows (its segments in order)
+//   through a ring of COMBINE_STAGES stages in shared memory, each
+//   COMBINE_ROWS rows of the strip: each thread copies its own word of
+//   each row with a 16-byte cp.async (two 8-byte ones where n is odd), a
+//   commit group a stage, and sums a stage once cp.async.wait_group says
+//   that its own copies of it have landed, while the copies of the next
+//   COMBINE_STAGES - 1 stages are in flight (24 KB a block). A thread reads
+//   only the words it copied, so a stage needs no block barrier and no
+//   mbarrier; a TMA bulk copy of a row's strip would need an issuing
+//   thread and a full and an empty barrier a stage for the same bytes.
+// - The bank (the alpha powers, the plan's offsets into it unchanged) is
+//   copied into shared memory once a block, before the first barrier:
+//   every row reads its batches' powers there.
+// - A thread keeps 2 B x 2 unreduced 160-bit sums (gl::acc_add, as
+//   csrc/constraints.cuh) and reduces each once. Where the plan is nested
+//   (CombinePlan: prover_device.composition_bank gives batches 0 and 1 one
+//   copy of the trace and Z rows' powers) a row that batches 0 and 1 share
+//   goes into batch 1's sums only, which batch 0 adds once at the end:
+//   CpuStark's 434 row products a column become 262. shift^j is one
+//   exponentiation a block (its strip's first column, in shared memory), a
+//   short one a thread (shift^(2 t)) and a product a column.
+// - The padding columns past the last strip are zeroed by the strips'
+//   blocks, each its share, 16 bytes a store, while its first stages load
+//   (blocks of their own would write them after the strips' loads, not
+//   beside them).
 // The plan (the oracles' base pointers and each segment of rows with its
 // alpha offsets per batch) goes by value in the kernel's parameters, so a
 // replayed graph needs no copy; the alpha powers stay in the device bank,
-// where the challenges enter, read as uniform loads.
+// where the challenges enter.
 //
 // K10 gl_fri_quotient: for each point i of the coset, x_i = shift * w^i,
 //   F <- F * alpha^{len_b} + (v_b(x_i) - y_b) / (x_i - z_b)  for b in order,
@@ -78,12 +102,15 @@
 // bytes, each 32-byte sector read by two loads in a row). Bound: device
 // memory, 16 A bytes read and 16 written an output; 4 (A - 1) + 1 products.
 //
-// The kernels call only goldilocks.cuh's gl:: helpers, and K10's first
-// thread writes its block's shared constants before any other thread
-// reads them, so with the CUDA qualifiers stubbed (shared memory as a
-// static array, the barrier as nothing) a host compiler builds this
-// namespace and runs every thread in turn (tests/test_torch_fri_kernels.py).
+// The kernels call only goldilocks.cuh's gl:: helpers and K9's copy
+// helpers, each with a host twin (the copies synchronous), so with the
+// CUDA qualifiers and the barrier stubbed (shared memory as a static
+// array) a host compiler builds this namespace and runs a launch's blocks
+// in turn, each block's threads side by side
+// (tests/test_torch_fri_kernels.py, tests/torch_host_block.py).
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "goldilocks.cuh"
 
@@ -93,8 +120,18 @@ constexpr int MAX_ORACLES = 4;
 constexpr int MAX_BATCHES = 4;
 constexpr int MAX_SEGMENTS = 64;
 constexpr int COMBINE_THREADS = 128;
-// columns a thread of K9: 2 B x 2 160-bit sums in registers
+// columns a thread of K9 (one 16-byte word of a row): 2 B x 2 160-bit sums
+// in registers
 constexpr int COMBINE_COLS = 2;
+constexpr int COMBINE_STRIP = COMBINE_THREADS * COMBINE_COLS;
+// rows a stage of K9's ring, and its stages: a stage is summed while the
+// next COMBINE_STAGES - 1 are copied (30 KB of shared memory a block, 24 KB
+// of it in flight; 4 x 4, 4 x 3, 2 x 6 and 2 x 8 ran slower on an H100)
+constexpr int COMBINE_ROWS = 3;
+constexpr int COMBINE_STAGES = 5;
+// the bank words K9 holds in shared memory (8 KB; CpuStark's plan, the
+// widest, has 542)
+constexpr int COMBINE_BANK = 1024;
 constexpr int QUOTIENT_THREADS = 128;
 // pairs of points a thread of K10 (two words a point kept in shared
 // memory for the pass back)
@@ -116,9 +153,13 @@ struct Segment {
   int32_t re[MAX_BATCHES], im[MAX_BATCHES];
 };
 
+// nested: every segment that batch 1 reads, batch 0 reads with the same
+// bank words (the FRI plan: batch 1 the trace and Z rows of batch 0), so
+// those rows go into batch 1's sums only and batch 0 adds them at the end
 struct CombinePlan {
   const uint64_t* oracles[MAX_ORACLES];
   int32_t segments;
+  int32_t nested;
   Segment seg[MAX_SEGMENTS];
 };
 
@@ -128,23 +169,140 @@ struct QuotientPlan {
   int32_t point[MAX_BATCHES];
 };
 
-template <int B>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-    combine_kernel(const CombinePlan plan, const uint64_t* __restrict__ bank,
-                   uint64_t* __restrict__ out, int64_t n, int64_t size,
-                   uint64_t shift) {
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * COMBINE_THREADS *
-                         COMBINE_COLS + threadIdx.x;
-  if (j0 >= n) {  // the padding
-#pragma unroll
-    for (int u = 0; u < COMBINE_COLS; ++u) {
-      const int64_t j = j0 + u * COMBINE_THREADS;
-      if (j < size)
-#pragma unroll
-        for (int r = 0; r < 2 * B; ++r) out[r * size + j] = 0;
+// two neighbouring words, one 16-byte load or store
+struct alignas(16) Pair {
+  uint64_t a, b;
+};
+
+// cp.async: 16 (or 8) bytes from device memory into shared memory, in the
+// thread's current commit group; copy_wait<N> waits until at most N of the
+// thread's groups are in flight, and the thread's copies of the others
+// are then visible to it. The host twins copy at once.
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+#else
+  std::memcpy(smem, gmem, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_async8(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+#else
+  std::memcpy(smem, gmem, 8);
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+#endif
+}
+
+// the cursor of a walk over the plan's rows: segment s, its row k
+struct RowCursor {
+  int s = 0, k = 0;
+  __device__ __forceinline__ void next(const CombinePlan& plan) {
+    if (++k == plan.seg[s].count) {
+      ++s;
+      k = 0;
     }
-    return;
   }
+};
+
+// the padding columns [from, to) of the (rows, size) output zeroed by a
+// block's threads, 16 bytes a store where VEC
+template <bool VEC>
+__device__ __forceinline__ void zero_columns(uint64_t* out, int rows,
+                                             int64_t size, int64_t from,
+                                             int64_t to) {
+  for (int r = 0; r < rows; ++r) {
+    uint64_t* const o = out + r * size;
+    if constexpr (VEC) {
+      for (int64_t j = from + 2 * threadIdx.x; j < to;
+           j += 2 * COMBINE_THREADS)
+        *reinterpret_cast<Pair*>(o + j) = {0, 0};
+    } else {
+      for (int64_t j = from + threadIdx.x; j < to; j += COMBINE_THREADS)
+        o[j] = 0;
+    }
+  }
+}
+
+// VEC: n even and every pointer 16-byte aligned (rows move as Pairs).
+// Block b owns the strip of columns [b STRIP, (b + 1) STRIP) and zeroes its
+// share of the padding past the last strip (an even number of columns a
+// block) while its first stages load. The plan is read where the launch
+// put it (__grid_constant__: the walks over its segments take references
+// into it, which would otherwise copy it to each thread's local memory).
+template <int B, bool VEC>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+    combine_kernel(const __grid_constant__ CombinePlan plan,
+                   const uint64_t* __restrict__ bank,
+                   int bank_words, uint64_t* __restrict__ out, int64_t n,
+                   int64_t size, uint64_t shift) {
+  __shared__ Pair ring[COMBINE_STAGES][COMBINE_ROWS][COMBINE_THREADS];
+  __shared__ uint64_t alphas[COMBINE_BANK];
+  const int tid = threadIdx.x;
+  const int64_t j0 =
+      static_cast<int64_t>(blockIdx.x) * COMBINE_STRIP + 2 * tid;
+  const bool in0 = j0 < n, in1 = j0 + 1 < n;
+  RowCursor copied, summed;
+  // copy the thread's word of the next COMBINE_ROWS rows into a stage
+  auto fill = [&](int stage) {
+#pragma unroll
+    for (int r = 0; r < COMBINE_ROWS; ++r) {
+      if (copied.s < plan.segments) {
+        const Segment& sg = plan.seg[copied.s];
+        const uint64_t* src = plan.oracles[sg.oracle] +
+                              static_cast<int64_t>(sg.first + copied.k) * n +
+                              j0;
+        Pair* const dst = &ring[stage][r][tid];
+        if constexpr (VEC) {
+          if (in0) copy_async16(dst, src);
+        } else {
+          if (in0) copy_async8(&dst->a, src);
+          if (in1) copy_async8(&dst->b, src + 1);
+        }
+        copied.next(plan);
+      }
+    }
+    copy_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < COMBINE_STAGES - 1; ++st) fill(st);
+  const int64_t strips = static_cast<int64_t>(gridDim.x) * COMBINE_STRIP;
+  if (size > strips) {
+    const int64_t share =
+        ((size - strips + gridDim.x - 1) / gridDim.x + 1) & ~int64_t{1};
+    const int64_t from = strips + blockIdx.x * share;
+    const int64_t to = from + share < size ? from + share : size;
+    if (from < to) zero_columns<VEC>(out, 2 * B, size, from, to);
+  }
+  for (int i = tid; i < bank_words; i += COMBINE_THREADS)
+    alphas[i] = __ldg(bank + i);
+  // shift^(the strip's first column), one exponentiation a block
+  __shared__ uint64_t strip_shift;
+  if (tid == 0)
+    strip_shift = gl::pow_u64(
+        shift, static_cast<uint64_t>(blockIdx.x) * COMBINE_STRIP);
+  __syncthreads();
+
+  const bool nested = B > 1 && plan.nested;
   gl::u160 acc[B][2][COMBINE_COLS];
 #pragma unroll
   for (int b = 0; b < B; ++b)
@@ -152,46 +310,57 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
     for (int p = 0; p < 2; ++p)
 #pragma unroll
       for (int u = 0; u < COMBINE_COLS; ++u) acc[b][p][u] = {0, 0, 0};
-  for (int s = 0; s < plan.segments; ++s) {
-    const Segment& sg = plan.seg[s];
-    const uint64_t* rows =
-        plan.oracles[sg.oracle] + static_cast<int64_t>(sg.first) * n;
-    for (int k = 0; k < sg.count; ++k) {
-      uint64_t c[COMBINE_COLS];
+  for (int stage = 0; summed.s < plan.segments; ++stage) {
+    // the stage summed last is refilled with the rows COMBINE_STAGES - 1
+    // stages on
+    fill((stage + COMBINE_STAGES - 1) % COMBINE_STAGES);
+    copy_wait<COMBINE_STAGES - 1>();
+    const int slot = stage % COMBINE_STAGES;
 #pragma unroll
-      for (int u = 0; u < COMBINE_COLS; ++u) {
-        const int64_t j = j0 + u * COMBINE_THREADS;
-        c[u] = j < n ? __ldg(rows + k * n + j) : 0;
-      }
+    for (int r = 0; r < COMBINE_ROWS; ++r) {
+      if (summed.s < plan.segments) {
+        const Segment& sg = plan.seg[summed.s];
+        const Pair c = ring[slot][r][tid];
 #pragma unroll
-      for (int b = 0; b < B; ++b) {
-        if (sg.re[b] < 0) continue;
-        const uint64_t ar = __ldg(bank + sg.re[b] + k);
-        const uint64_t ai = __ldg(bank + sg.im[b] + k);
-#pragma unroll
-        for (int u = 0; u < COMBINE_COLS; ++u) {
-          gl::acc_add(acc[b][0][u], gl::mul_wide(c[u], ar));
-          gl::acc_add(acc[b][1][u], gl::mul_wide(c[u], ai));
+        for (int b = 0; b < B; ++b) {
+          if (sg.re[b] < 0) continue;
+          // a row that nests goes into batch 1's sums only
+          if (B > 1 && b == 0 && nested && sg.re[1] >= 0) continue;
+          const uint64_t ar = alphas[sg.re[b] + summed.k];
+          const uint64_t ai = alphas[sg.im[b] + summed.k];
+          gl::acc_add(acc[b][0][0], gl::mul_wide(c.a, ar));
+          gl::acc_add(acc[b][1][0], gl::mul_wide(c.a, ai));
+          gl::acc_add(acc[b][0][1], gl::mul_wide(c.b, ar));
+          gl::acc_add(acc[b][1][1], gl::mul_wide(c.b, ai));
         }
+        summed.next(plan);
       }
     }
   }
-  // shift^j: the thread's first column's power, then shift^THREADS a step
-  const uint64_t step = gl::pow_u64(shift, COMBINE_THREADS);
-  uint64_t w = gl::pow_u64(shift, static_cast<uint64_t>(j0));
+  // shift^j0 and shift^(j0 + 1); columns at or past n are 0
+  const uint64_t w0 =
+      in0 ? gl::mul(strip_shift, gl::pow_u64(shift, 2 * tid)) : 0;
+  const uint64_t w1 = gl::mul(w0, shift);
 #pragma unroll
-  for (int u = 0; u < COMBINE_COLS; ++u) {
-    const int64_t j = j0 + u * COMBINE_THREADS;
-    if (j < size) {
+  for (int b = 0; b < B; ++b)
 #pragma unroll
-      for (int b = 0; b < B; ++b)
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          out[(2 * b + p) * size + j] =
-              j < n ? gl::mul(gl::reduce160_lazy(acc[b][p][u]), w) : 0;
+    for (int p = 0; p < 2; ++p) {
+      uint64_t s0 = gl::reduce160_lazy(acc[b][p][0]);
+      uint64_t s1 = gl::reduce160_lazy(acc[b][p][1]);
+      if (B > 1 && b == 0 && nested) {  // batch 1's rows, folded in
+        s0 = gl::add(s0, gl::canonical(gl::reduce160_lazy(acc[1][p][0])));
+        s1 = gl::add(s1, gl::canonical(gl::reduce160_lazy(acc[1][p][1])));
+      }
+      const uint64_t v0 = in0 ? gl::mul(s0, w0) : 0;
+      const uint64_t v1 = in1 ? gl::mul(s1, w1) : 0;
+      uint64_t* const o = out + (2 * b + p) * size + j0;
+      if constexpr (VEC) {
+        if (j0 < size) *reinterpret_cast<Pair*>(o) = {v0, v1};
+      } else {
+        if (j0 < size) o[0] = v0;
+        if (j0 + 1 < size) o[1] = v1;
+      }
     }
-    w = gl::mul(w, step);
-  }
 }
 
 // K10's constants of B batches from the bank, by one thread
@@ -400,9 +569,9 @@ inline unsigned fold_blocks(int64_t m) {
                                                             : b));
 }
 
-inline unsigned combine_blocks(int64_t size) {
-  const int64_t per_block = COMBINE_THREADS * COMBINE_COLS;
-  return static_cast<unsigned>((size + per_block - 1) / per_block);
+// K9's blocks: a strip of columns each over [0, n)
+inline unsigned combine_blocks(int64_t n) {
+  return static_cast<unsigned>((n + COMBINE_STRIP - 1) / COMBINE_STRIP);
 }
 
 inline unsigned quotient_blocks(int64_t size) {
@@ -423,17 +592,31 @@ inline unsigned quotient_blocks(int64_t size) {
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-// plan: a host fri::CombinePlan of `batches` batches; out: (batches, 2, size)
+// plan: a host fri::CombinePlan of `batches` batches; bank: bank_words
+// words (at most fri::COMBINE_BANK); out: (batches, 2, size)
 extern "C" int gl_fri_combine(const void* plan, int batches, const void* bank,
-                              void* out, int64_t n, int64_t size,
-                              uint64_t shift, void* stream) {
+                              int bank_words, void* out, int64_t n,
+                              int64_t size, uint64_t shift, void* stream) {
   const auto& p = *static_cast<const fri::CombinePlan*>(plan);
   const auto s = static_cast<cudaStream_t>(stream);
-#define FRI_COMBINE(B)                                                      \
-  fri::combine_kernel<B><<<fri::combine_blocks(size), fri::COMBINE_THREADS, \
-                           0, s>>>(p, static_cast<const uint64_t*>(bank),   \
-                                   static_cast<uint64_t*>(out), n, size,    \
-                                   shift)
+  if (bank_words < 0 || bank_words > fri::COMBINE_BANK || n < 0 || size < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (size == 0) return 0;
+  bool vec = n % 2 == 0 && size % 2 == 0 &&
+             reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int i = 0; i < p.segments; ++i)
+    vec = vec &&
+          reinterpret_cast<uintptr_t>(p.oracles[p.seg[i].oracle]) % 16 == 0;
+  const unsigned blocks = fri::combine_blocks(n);
+#define FRI_COMBINE(B)                                                    \
+  if (vec)                                                                \
+    fri::combine_kernel<B, true><<<blocks, fri::COMBINE_THREADS, 0, s>>>( \
+        p, static_cast<const uint64_t*>(bank), bank_words,                \
+        static_cast<uint64_t*>(out), n, size, shift);                     \
+  else                                                                    \
+    fri::combine_kernel<B, false><<<blocks, fri::COMBINE_THREADS, 0, s>>>( \
+        p, static_cast<const uint64_t*>(bank), bank_words,                \
+        static_cast<uint64_t*>(out), n, size, shift)
   FRI_DISPATCH(batches, FRI_COMBINE)
 #undef FRI_COMBINE
   return static_cast<int>(cudaGetLastError());

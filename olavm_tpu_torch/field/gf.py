@@ -519,30 +519,42 @@ def _sum_plain(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def prefix_prod(x: torch.Tensor, dim: int = -1,
-                exclusive: bool = False) -> torch.Tensor:
+def prefix_prod(x: torch.Tensor, dim: int = -1, exclusive: bool = False,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """Modular prefix product along `dim`: inclusive, or with `exclusive`
-    [1, x_0, x_0 x_1, ...] (the last product dropped). K8 (csrc/scan.cu,
-    one launch and the zeroing of its scratch) on a CUDA tensor,
-    prefix_prod_plain on a CPU tensor."""
+    [1, x_0, x_0 x_1, ...] (the last product dropped), written into `out`
+    (x's shape; `out` may be x itself: a scan in place) or a new tensor.
+    K8 (csrc/scan.cu, one launch over every row and one fill of its
+    scratch's counter and flags) on a CUDA tensor, prefix_prod_plain on a
+    CPU tensor."""
+    if out is not None and out.shape != x.shape:
+        raise ValueError(f"prefix_prod: out {tuple(out.shape)} for x "
+                         f"{tuple(x.shape)}")
     if x.device.type != "cuda":
-        return prefix_prod_plain(x, dim, exclusive)
+        y = prefix_prod_plain(x, dim, exclusive)
+        return y if out is None else out.copy_(y)
     y = x.movedim(dim, -1).contiguous()
     kernels.require_cuda_int64(y)
-    out = torch.empty_like(y)
+    if out is None:
+        dst = torch.empty_like(y)
+    else:
+        dst = out.movedim(dim, -1)
+        kernels.require_cuda_int64(dst)
     n = y.shape[-1]
     rows = y.numel() // n if n else 0
     if rows:
         lib = kernels.lib("scan")
-        # the tiles' counter, flags, products and prefixes, zeroed in the
-        # stream (a program's capture records the fill)
-        state = torch.zeros(lib.gl_prefix_prod_state_words(rows, n),
+        # the tiles' counter and flags zeroed in the stream (a program's
+        # capture records the fill); their products and prefixes are
+        # written before their flags
+        state = torch.empty(lib.gl_prefix_prod_state_words(rows, n),
                             dtype=torch.int64, device=y.device)
+        state[:lib.gl_prefix_prod_zeroed_words(rows, n)].zero_()
         kernels.check(lib.gl_prefix_prod(
-            y.data_ptr(), out.data_ptr(), state.data_ptr(), state.numel(),
+            y.data_ptr(), dst.data_ptr(), state.data_ptr(), state.numel(),
             rows, n, int(exclusive), kernels.stream_ptr(y)), "prefix_prod")
         kernels.count("prefix_prod")
-    return out.movedim(-1, dim)
+    return dst.movedim(-1, dim) if out is None else out
 
 
 def prefix_prod_plain(x: torch.Tensor, dim: int = -1,

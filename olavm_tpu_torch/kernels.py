@@ -79,7 +79,8 @@ _SIGNATURES = {
                                 _INT, _INT, _I64, _VP],
              "gl_eval_occupancy": [_INT, _I64, ctypes.POINTER(_INT)]},
     "fri": {
-        "gl_fri_combine": [_VP, _INT, _VP, _VP, _I64, _I64, _U64, _VP],
+        "gl_fri_combine": [_VP, _INT, _VP, _INT, _VP, _I64, _I64, _U64,
+                           _VP],
         "gl_fri_quotient": [_VP, _INT, _VP, _VP, _VP, _VP, _I64, _U64, _U64,
                             _VP],
         "gl_fri_fold": [_VP, _VP, _VP, _VP, _I64, _INT, _VP],
@@ -113,10 +114,12 @@ _SIGNATURES = {
     "scan": {
         "gl_prefix_prod": [_VP, _VP, _VP, _I64, _I64, _I64, _INT, _VP],
         "gl_prefix_prod_state_words": [_I64, _I64],
+        "gl_prefix_prod_zeroed_words": [_I64, _I64],
     },
 }
 # entry points that return something other than an error code
-_RESTYPES = {"gl_prefix_prod_state_words": _I64}
+_RESTYPES = {"gl_prefix_prod_state_words": _I64,
+             "gl_prefix_prod_zeroed_words": _I64}
 
 
 def reset_launches() -> None:

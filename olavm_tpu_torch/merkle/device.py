@@ -98,7 +98,13 @@ def leaf_digests(cols: torch.Tensor, hasher_kind: str = "blake3"
     check_hasher(hasher_kind)
     C, n = cols.shape
     if C <= NOOP_MAX:
-        return _words(torch.cat([cols, cols.new_zeros(4 - C, n)]))[:8]
+        # the leaf is its own digest: each column's lo and hi words, then
+        # zeros (written into the (8, n) digest itself: a quotient commit
+        # of 2^26 leaves would otherwise make an 8 GiB padded block)
+        out = cols.new_zeros(8, n)
+        out[0:2 * C:2] = cols & M32
+        out[1:2 * C:2] = (cols >> 32) & M32
+        return out
     if hasher_kind == "poseidon":
         return pos.leaves(cols)
     if C > 2 * CHUNK_COLS:

@@ -129,12 +129,19 @@ def view_params(columns, filter_column) -> _View:
 
 
 def ctl_combine(trace: torch.Tensor, columns, filter_column,
-                beta_gamma: torch.Tensor) -> torch.Tensor:
+                beta_gamma: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """(n,): each row's sum_i col_i beta^i + gamma where the filter is 1, 1
-    elsewhere, of a (C, n) trace and the (2,) bank [beta, gamma]. K11 on
-    CUDA tensors, ctl_combine_plain on CPU tensors."""
+    elsewhere, of a (C, n) trace and the (2,) bank [beta, gamma], written
+    into `out` (an (n,) row, of a table's (Z, n) array, say) or a new
+    tensor. K11 on CUDA tensors, ctl_combine_plain on CPU tensors."""
+    n = trace.shape[-1]
+    if out is not None and tuple(out.shape) != (n,):
+        raise ValueError(f"ctl_combine: out {tuple(out.shape)} for a trace "
+                         f"of {n} rows")
     if beta_gamma.device.type != "cuda":
-        return ctl_combine_plain(trace, columns, filter_column, beta_gamma)
+        got = ctl_combine_plain(trace, columns, filter_column, beta_gamma)
+        return got if out is None else out.copy_(got)
     trace, bank = trace.contiguous(), beta_gamma.contiguous()
     kernels.require_cuda_int64(trace, bank)
     v = view_params(columns, filter_column)
@@ -145,8 +152,9 @@ def ctl_combine(trace: torch.Tensor, columns, filter_column,
         raise ValueError(f"ctl_combine: the view reads past the trace's "
                          f"{trace.shape[0]} columns: "
                          f"{view_name(columns, filter_column)}")
-    n = trace.shape[1]
-    out = torch.empty((n,), dtype=torch.int64, device=trace.device)
+    if out is None:
+        out = torch.empty((n,), dtype=torch.int64, device=trace.device)
+    kernels.require_cuda_int64(trace, out)
     kernels.check(kernels.lib("ctl").gl_ctl_combine(
         ctypes.addressof(v), trace.data_ptr(), bank.data_ptr(),
         out.data_ptr(), n, kernels.stream_ptr(trace)),

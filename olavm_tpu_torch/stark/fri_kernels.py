@@ -36,10 +36,12 @@ from ..field.gfe import GFE, W
 from ..ntt import ntt as dntt
 from ..utils.bits import log2_strict
 
-# csrc/fri.cu's limits of a plan and its K9 segment table
+# csrc/fri.cu's limits of a plan, its K9 segment table and the bank words
+# K9 holds in shared memory
 MAX_ORACLES = 4
 MAX_BATCHES = 4
 MAX_SEGMENTS = 64
+COMBINE_BANK = 1024
 SHIFT = g.MULTIPLICATIVE_GROUP_GENERATOR
 
 
@@ -53,7 +55,16 @@ class _Segment(ctypes.Structure):
 class _CombinePlan(ctypes.Structure):
     _fields_ = [("oracles", ctypes.c_void_p * MAX_ORACLES),
                 ("segments", ctypes.c_int32),
+                ("nested", ctypes.c_int32),
                 ("seg", _Segment * MAX_SEGMENTS)]
+
+
+def nested(segs: tuple) -> bool:
+    """Whether every segment that batch 1 reads, batch 0 reads with the same
+    bank words (K9 then adds batch 1's sums into batch 0's once)."""
+    return any(re[1] >= 0 for _, _, _, re, _ in segs) and all(
+        re[0] == re[1] and im[0] == im[1]
+        for _, _, _, re, im in segs if len(re) > 1 and re[1] >= 0)
 
 
 class _QuotientPlan(ctypes.Structure):
@@ -98,8 +109,8 @@ def _check_plan(plan: tuple, n_oracles: int) -> None:
 
 
 def combine_params(coeffs, plan: tuple) -> _CombinePlan:
-    """K9's plan parameter: the oracles' base pointers and the plan's
-    segments."""
+    """K9's plan parameter: the oracles' base pointers, the plan's segments
+    and whether batch 1's rows nest in batch 0's."""
     _check_plan(plan, len(coeffs))
     segs = segments(plan)
     if len(segs) > MAX_SEGMENTS:
@@ -109,6 +120,7 @@ def combine_params(coeffs, plan: tuple) -> _CombinePlan:
     for i, c in enumerate(coeffs):
         p.oracles[i] = c.data_ptr()
     p.segments = len(segs)
+    p.nested = int(len(plan) > 1 and nested(segs))
     for s, (oi, first, count, re, im) in zip(p.seg, segs):
         s.oracle, s.first, s.count = oi, first, count
         s.re[:len(re)], s.im[:len(im)] = re, im
@@ -136,12 +148,15 @@ def fri_combine(oracle_coeffs, bank: torch.Tensor, plan: tuple,
         raise ValueError(f"fri_combine: oracles "
                          f"{[tuple(c.shape) for c in coeffs]}, not (C, {n})")
     p = combine_params(coeffs, plan)
+    if bank.numel() > COMBINE_BANK:
+        raise ValueError(f"fri_combine: a bank of {bank.numel()} words, "
+                         f"csrc/fri.cu holds {COMBINE_BANK} (plan {plan})")
     size = n << rate_bits
     out = torch.empty((len(plan), 2, size), dtype=torch.int64,
                       device=bank.device)
     kernels.check(kernels.lib("fri").gl_fri_combine(
-        ctypes.addressof(p), len(plan), bank.data_ptr(), out.data_ptr(), n,
-        size, SHIFT, kernels.stream_ptr(bank)),
+        ctypes.addressof(p), len(plan), bank.data_ptr(), bank.numel(),
+        out.data_ptr(), n, size, SHIFT, kernels.stream_ptr(bank)),
         f"fri_combine (plan {plan})")
     kernels.count("fri_combine")
     return out

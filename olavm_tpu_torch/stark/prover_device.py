@@ -591,9 +591,12 @@ def composition_bank(instance, alpha, reduced) -> tuple[tuple, list[int]]:
     """The FRI composition's static plan and its bank. Per batch: its runs
     of consecutive polynomials of one oracle, at most 16 each, as (oracle,
     first index, count, bank offset of the run's alpha powers: count re
-    parts, then count im parts), and the bank offset of the batch's point,
-    its reduced opening y and alpha^{len(batch)}, re and im each."""
+    parts, then count im parts; a run with the rows and powers of an
+    earlier batch's run has that run's offset), and the bank offset of the
+    batch's point, its reduced opening y and alpha^{len(batch)}, re and im
+    each."""
     plan, values = [], []
+    placed: dict = {}  # (oracle, first index, powers) -> its bank offset
     for batch, y in zip(instance.batches, reduced):
         runs = []  # [oracle, first index, host alpha powers]
         pw = (1, 0)
@@ -607,8 +610,14 @@ def composition_bank(instance, alpha, reduced) -> tuple[tuple, list[int]]:
             pw = ge.t_mul(pw, alpha)
         batch_runs = []
         for oi, p0, pws in runs:
-            batch_runs.append((oi, p0, len(pws), len(values)))
-            values += [p[0] for p in pws] + [p[1] for p in pws]
+            # a run of an earlier batch with the same rows and powers (the
+            # trace and Z rows of batches 0 and 1) shares its bank words, so
+            # the plan nests and K9 sums those rows once for both
+            run = (oi, p0, tuple(pws))
+            if run not in placed:
+                placed[run] = len(values)
+                values += [p[0] for p in pws] + [p[1] for p in pws]
+            batch_runs.append((oi, p0, len(pws), placed[run]))
         plan.append((tuple(batch_runs), len(values)))
         for v in (ge.t(batch.point), ge.t(y), pw):
             values += [int(v[0]), int(v[1])]

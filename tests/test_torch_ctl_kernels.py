@@ -39,7 +39,7 @@ from olavm_tpu_torch.field import gf
 from olavm_tpu_torch.stark import ctl_kernels as ck
 from olavm_tpu_torch.stark.cross_table_lookup import Column
 from olavm_tpu_torch.tables.ola_stark import OlaStark, all_cross_table_lookups
-from test_torch_fri_kernels import FRI_STUB
+from torch_host_block import HOST_BLOCK_STUB
 import chip_smoke
 import torch_threads  # noqa: F401  (torch's share of the cores)
 
@@ -192,7 +192,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
-# csrc/ctl.cu built by g++, every thread run on the host
+# csrc/ctl.cu built by g++, every launch run on the host
 # ---------------------------------------------------------------------------
 
 CTL_HOST_GRID = """
@@ -211,32 +211,29 @@ extern "C" void host_ctl_combine(const void* view, const uint64_t* trace,
   const int slots = g_view->slots;
   void (*run)() = slots <= 8 ? combine<8>
                              : (slots <= 16 ? combine<16> : combine<32>);
-  gridDim.x = ctl::blocks(n);
-  blockDim.x = ctl::THREADS;
-  for (blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)
-    for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x) run();
+  host_grid_in_turn(ctl::blocks(n), ctl::THREADS, run);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def ctl_host(tmp_path_factory):
-    """csrc/ctl.cu's kernel built by g++ (the CUDA qualifiers and index
-    registers stubbed, goldilocks.cuh's host twins) with a loop that runs
-    every thread of a launch on the host."""
+    """csrc/ctl.cu's kernel built by g++ (tests/torch_host_block.py's
+    stub, goldilocks.cuh's host twins), each launch run on the host."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     text = (kernels.CSRC / "ctl.cu").read_text()
     start = text.index('#include "goldilocks.cuh"')
     end = text.index("}  // namespace ctl") + len("}  // namespace ctl")
     d = tmp_path_factory.mktemp("ctl_host")
-    (d / "stub.h").write_text(FRI_STUB)
+    (d / "stub.h").write_text(HOST_BLOCK_STUB)
     (d / "ctl_host.cpp").write_text(text[start:end] + CTL_HOST_GRID)
     so = d / "libctlhost.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", "-I", str(kernels.CSRC),
-                    "-include", str(d / "stub.h"), str(d / "ctl_host.cpp"),
-                    "-o", str(so)], check=True, capture_output=True)
+                    "-pthread", "-Wno-unknown-pragmas", "-I",
+                    str(kernels.CSRC), "-include", str(d / "stub.h"),
+                    str(d / "ctl_host.cpp"), "-o", str(so)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
     lib.host_ctl_combine.argtypes = [vp, vp, vp, vp, ctypes.c_int64]

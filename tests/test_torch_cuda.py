@@ -722,6 +722,20 @@ def test_prefix_prod_kernel_matches_plain(dev, rows, n):
         assert torch.equal(gf.prefix_prod(x), want)
 
 
+@pytest.mark.parametrize("rows,n,offset", [(3, 5000, 0), (2, 4097, 0),
+                                           (8, 1 << 18, 0), (4, 1000, 1)])
+def test_prefix_prod_kernel_in_place(dev, rows, n, offset):
+    """Both forms scan in place (out= x); at an odd offset into its
+    storage the rows take the kernel's 8-byte path."""
+    buf = convert.from_u64(_rand(rows * n + offset, n + 3), dev)
+    x = buf[offset:].view(rows, n)
+    for exclusive in (False, True):
+        want = gf.prefix_prod_plain(x, exclusive=exclusive)
+        y = buf.clone()[offset:].view(rows, n)
+        assert gf.prefix_prod(y, exclusive=exclusive, out=y) is y
+        assert torch.equal(y, want)
+
+
 def test_prefix_prod_kernel_in_a_graph_replays(dev):
     x = convert.from_u64(_rand(70000, 9), dev)
     y = convert.from_u64(_rand(70000, 10), dev)
@@ -960,29 +974,37 @@ def test_ctl_combine_kernel_on_every_view(dev, n):
 
 
 def test_ctl_z_program_replays_under_another_bank(dev):
-    """A CTL Z captured in a graph (K11, then K8) and replayed with the
-    bank refilled gives the new challenges' Z: no challenge is baked into
+    """A table's CTL Zs captured in a graph (K11 a view into its row of one
+    (Z, n) array, then one K8 launch over the rows in place), as
+    ctl_data_device's per-table program runs them, and replayed with the
+    bank refilled give the new challenges' Zs: no challenge is baked into
     the capture."""
     import chip_smoke
     from olavm_tpu_torch.stark import ctl_device as tctl
     from olavm_tpu_torch.stark import ctl_kernels as ck
 
     rng = np.random.default_rng(12)
-    view = chip_smoke.widest_view(0)
-    trace, bank, _ = chip_smoke.ctl_case(view, 1 << 14, rng, dev)
-    static = bank.clone()
-    tctl.ctl_z_device(trace, view.columns, view.filter_column, static)
+    table_views = [t for t in chip_smoke.ctl_views() if t.table == 0][:5]
+    views = tuple((t.columns, t.filter_column, c)
+                  for c in (0, 1) for t in table_views)
+    trace, _, _ = chip_smoke.ctl_case(chip_smoke.widest_view(0), 1 << 14,
+                                      rng, dev)
+    static = convert.from_u64(_rand(4, 11), dev)
+    before = dict(kernels.LAUNCHES)
+    tctl.ctl_table_zs(trace, static, views)
+    assert kernels.LAUNCHES["ctl_combine"] - before["ctl_combine"] == 10
+    assert kernels.LAUNCHES["prefix_prod"] - before["prefix_prod"] == 1
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = tctl.ctl_z_device(trace, view.columns, view.filter_column,
-                                static)
+        out = tctl.ctl_table_zs(trace, static, views)
     for seed in (1, 2):
-        bg = convert.from_u64(_rand(2, seed), dev)
-        static.copy_(bg)
+        bank = convert.from_u64(_rand(4, seed), dev)
+        static.copy_(bank)
         graph.replay()
-        want = gf.prefix_prod_plain(ck.ctl_combine_plain(
-            trace, view.columns, view.filter_column, bg))
-        assert torch.equal(out, want)
+        for row, (columns, filt, c) in zip(out, views):
+            want = gf.prefix_prod_plain(ck.ctl_combine_plain(
+                trace, columns, filt, bank[2 * c:2 * c + 2]))
+            assert torch.equal(row, want)
 
 
 def test_ctl_combine_kernel_refuses_what_it_does_not_take(dev):

@@ -62,8 +62,10 @@ K9K10 = _constants()
 
 
 def test_wrapper_limits_are_the_sources():
-    assert (fk.MAX_ORACLES, fk.MAX_BATCHES, fk.MAX_SEGMENTS) == (
-        K9K10["MAX_ORACLES"], K9K10["MAX_BATCHES"], K9K10["MAX_SEGMENTS"])
+    assert (fk.MAX_ORACLES, fk.MAX_BATCHES, fk.MAX_SEGMENTS,
+            fk.COMBINE_BANK) == (
+        K9K10["MAX_ORACLES"], K9K10["MAX_BATCHES"], K9K10["MAX_SEGMENTS"],
+        K9K10["COMBINE_BANK"])
     assert "fri" in kernels.SOURCES
     assert {"fri_combine", "fri_quotient", "fri_fold"} <= set(
         kernels.LAUNCHES)
@@ -150,6 +152,24 @@ def test_segments_read_each_batch_row_once(name):
         assert len(fk.segments(p)) <= fk.MAX_SEGMENTS
 
 
+@pytest.mark.parametrize("widths,num_perm", [((94, 78, 12), 0),
+                                             ((17, 5, 2), 2)])
+def test_composition_plans_nest_batch_one_in_batch_zero(widths, num_perm):
+    """composition_bank gives batch 1 (the trace and Z rows) the bank words
+    of batch 0's same rows, so K9 forms their products once and folds batch
+    1's sums into batch 0's; a plan whose batch 1 reads other words does
+    not nest."""
+    rng = np.random.default_rng(2)
+    _, bank, plan = chip_smoke.fri_case(widths, num_perm, 1 << 4, rng, "cpu")
+    segs = fk.segments(plan)
+    assert fk.nested(segs)
+    assert len(bank) == 2 * (sum(widths) + widths[1] - num_perm) + 18
+    other = (plan[0], (tuple((oi, p0, k, roff + 1)
+                             for oi, p0, k, roff in plan[1][0]),
+                       plan[1][1]), plan[2])
+    assert not fk.nested(fk.segments(other))
+
+
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     rng = np.random.default_rng(3)
     coeffs, bank, plan = chip_smoke.fri_case((3, 2, 1), 0, 16, rng, "cpu")
@@ -187,27 +207,13 @@ def test_combine_plain_against_python_ints():
 # csrc/fri.cu built by g++, every thread run on the host
 # ---------------------------------------------------------------------------
 
-FRI_STUB = """
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-#define __syncthreads()
-struct HostDim { unsigned x; };
-static HostDim blockIdx, blockDim, threadIdx, gridDim;
-template <class T> static inline T __ldg(const T* p) { return *p; }
-struct alignas(16) ulonglong2 { unsigned long long x, y; };
-"""
-
-# every (block, thread) of a launch of csrc/fri.cu's kernels, in turn
+# a launch of csrc/fri.cu's kernels on the host (tests/torch_host_block.py):
+# K9's threads side by side (they meet at a barrier after the bank's copy),
+# K10's and K12's one after another (K10's first thread fills its block's
+# constants; K12's threads share nothing)
 FRI_HOST_GRID = """
 static void grid(unsigned blocks, unsigned threads, void (*run)()) {
-  gridDim.x = blocks;
-  blockDim.x = threads;
-  for (blockIdx.x = 0; blockIdx.x < blocks; ++blockIdx.x)
-    for (threadIdx.x = 0; threadIdx.x < threads; ++threadIdx.x) run();
+  host_grid_in_turn(blocks, threads, run);
 }
 static const fri::CombinePlan* g_cplan;
 static const fri::QuotientPlan* g_qplan;
@@ -215,20 +221,29 @@ static const uint64_t *g_bank, *g_values, *g_tw;
 static uint64_t* g_out;
 static int64_t g_n, g_size;
 static uint64_t g_shift, g_half;
+static int g_bank_words;
+static bool g_vec;
 template <int B> static void combine() {
-  fri::combine_kernel<B>(*g_cplan, g_bank, g_out, g_n, g_size, g_shift);
+  if (g_vec)
+    fri::combine_kernel<B, true>(*g_cplan, g_bank, g_bank_words, g_out, g_n,
+                                 g_size, g_shift);
+  else
+    fri::combine_kernel<B, false>(*g_cplan, g_bank, g_bank_words, g_out, g_n,
+                                  g_size, g_shift);
 }
 template <int B> static void quotient() {
   fri::quotient_kernel<B>(*g_qplan, g_values, g_bank, g_tw, g_out, g_size,
                           g_shift, g_half);
 }
 extern "C" void host_fri_combine(const void* plan, int batches,
-                                 const uint64_t* bank, uint64_t* out,
-                                 int64_t n, int64_t size, uint64_t shift) {
+                                 const uint64_t* bank, int bank_words,
+                                 uint64_t* out, int64_t n, int64_t size,
+                                 uint64_t shift, int vec) {
   g_cplan = static_cast<const fri::CombinePlan*>(plan);
-  g_bank = bank; g_out = out; g_n = n; g_size = size; g_shift = shift;
+  g_bank = bank; g_bank_words = bank_words; g_out = out; g_n = n;
+  g_size = size; g_shift = shift; g_vec = vec;
   void (*run[])() = {combine<1>, combine<2>, combine<3>, combine<4>};
-  grid(fri::combine_blocks(size), fri::COMBINE_THREADS, run[batches - 1]);
+  host_grid(fri::combine_blocks(n), fri::COMBINE_THREADS, run[batches - 1]);
 }
 static const uint64_t *g_re, *g_im, *g_bpows;
 static int64_t g_m;
@@ -259,25 +274,29 @@ extern "C" void host_fri_quotient(const void* plan, int batches,
 
 @pytest.fixture(scope="module")
 def fri_host(tmp_path_factory):
-    """csrc/fri.cu's kernels built by g++ (the CUDA qualifiers and index
-    registers stubbed, goldilocks.cuh's host twins) with a loop that runs
-    every thread of a launch on the host."""
+    """csrc/fri.cu's kernels built by g++ (tests/torch_host_block.py's
+    stub, goldilocks.cuh's and the copy helpers' host twins), each launch
+    run on the host."""
+    from torch_host_block import HOST_BLOCK_STUB
+
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     text = (kernels.CSRC / "fri.cu").read_text()
     start = text.index('#include "goldilocks.cuh"')
     end = text.index("}  // namespace fri") + len("}  // namespace fri")
     d = tmp_path_factory.mktemp("fri_host")
-    (d / "stub.h").write_text(FRI_STUB)
+    (d / "stub.h").write_text(HOST_BLOCK_STUB)
     (d / "fri_host.cpp").write_text(text[start:end] + FRI_HOST_GRID)
     so = d / "libfrihost.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", "-I", str(kernels.CSRC),
-                    "-include", str(d / "stub.h"), str(d / "fri_host.cpp"),
-                    "-o", str(so)], check=True, capture_output=True)
+                    "-pthread", "-Wno-unknown-pragmas", "-I",
+                    str(kernels.CSRC), "-include", str(d / "stub.h"),
+                    str(d / "fri_host.cpp"), "-o", str(so)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(so))
     vp, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
-    lib.host_fri_combine.argtypes = [vp, ctypes.c_int, vp, vp, i64, i64, u64]
+    lib.host_fri_combine.argtypes = [vp, ctypes.c_int, vp, ctypes.c_int, vp,
+                                     i64, i64, u64, ctypes.c_int]
     lib.host_fri_quotient.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, i64,
                                       u64, u64]
     lib.host_fri_fold.argtypes = [vp, vp, vp, vp, i64, ctypes.c_int]
@@ -286,28 +305,33 @@ def fri_host(tmp_path_factory):
     return lib
 
 
-def _combine_host(lib, coeffs, bank, plan, rate_bits):
+def _combine_host(lib, coeffs, bank, plan, rate_bits, vec=None):
+    """K9 by g++ on the host: with 16-byte rows (vec) where n is even,
+    unless vec says otherwise."""
     n = coeffs[0].shape[1]
     size = n << rate_bits
     out = torch.full((len(plan), 2, size), -1, dtype=torch.int64)
     p = fk.combine_params(coeffs, plan)
     lib.host_fri_combine(ctypes.addressof(p), len(plan), bank.data_ptr(),
-                         out.data_ptr(), n, size, fk.SHIFT)
+                         bank.numel(), out.data_ptr(), n, size, fk.SHIFT,
+                         int(n % 2 == 0 if vec is None else vec))
     return out
 
 
-# n not a multiple of a thread's columns (COMBINE_THREADS * COMBINE_COLS =
-# 256), nor of a block's, with and without padding
+# n not a multiple of a thread's columns (COMBINE_STRIP = 256), nor of a
+# block's, nor of a stage's rows, with and without padding (shares of it
+# ragged and past the end), odd n (8-byte copies)
 @pytest.mark.parametrize("n,rate_bits", [(2, 3), (3, 0), (300, 1), (257, 2),
-                                         (1024, 3)])
+                                         (1024, 3), (600, 2)])
 def test_k9_built_by_gxx_equals_plain(fri_host, n, rate_bits):
     rng = np.random.default_rng(n)
     for edge in (False, True):
         coeffs, bank, plan = chip_smoke.fri_case((17, 5, 2), 2, n, rng,
                                                  "cpu", edge)
-        got = _combine_host(fri_host, coeffs, bank, plan, rate_bits)
-        assert torch.equal(got, fk.fri_combine_plain(coeffs, bank, plan,
-                                                     rate_bits)), edge
+        want = fk.fri_combine_plain(coeffs, bank, plan, rate_bits)
+        for vec in sorted({False, n % 2 == 0}):
+            got = _combine_host(fri_host, coeffs, bank, plan, rate_bits, vec)
+            assert torch.equal(got, want), (edge, vec)
 
 
 def test_k9_built_by_gxx_on_one_to_four_batches(fri_host):

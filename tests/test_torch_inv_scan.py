@@ -15,8 +15,15 @@ has one answer):
   versions, on all zeros and on a zero in every chunk too;
 - a model of K8's tile scan (threads, items, warps, shuffles) and of its
   decoupled look-back (windows of 32 earlier tiles, each seen as
-  aggregate-only or with its prefix) equals the plain version, at the
-  kernel's tile and at small tiles that take several windows;
+  aggregate-only or with its prefix), scanning in place, equals the plain
+  version, at the kernel's tile and at small tiles that take several
+  windows;
+- K8's kernel, compiled by g++ with the CUDA qualifiers, the barrier, the
+  warp intrinsics and its atomic and acquire/release helpers stubbed
+  (tests/torch_host_block.py), its blocks run in the counter's order with
+  each block's threads side by side, equals the plain version over (rows,
+  n) arrays, inclusive and exclusive, into another array and in place,
+  with 16-byte and 8-byte loads;
 - the FRI composition (fri_composition, through prove_openings_device)
   equals olavm_tpu's on the same oracles and transcript.
 On the card, tests/test_torch_cuda.py holds both kernels to their plain
@@ -281,24 +288,29 @@ def test_k7_built_by_gxx_equals_plain(k7_host, n):
 
 def k8_model(x: np.ndarray, threads: int, items: int, exclusive: bool,
              rng, prefix_share: float) -> np.ndarray:
-    """K8 on a (rows, n) array in Python ints, tile by tile in the order the
-    counter hands them out. Each tile: thread t scans its `items`
-    consecutive points, the warp's shuffles (lane l takes lane l - d's value
-    for d = 1, 2, 4, 8, 16) scan the threads' products, one thread the
-    warps'; then the look-back over windows of 32 earlier tiles of its row,
-    where each earlier tile is seen with its prefix published (with
-    probability `prefix_share`; the row's first always) or with its
-    aggregate only, as a block that is still looking back would be seen."""
+    """K8 on a (rows, n) array in Python ints, in place on a copy, each
+    row's tiles in order (the counter hands out a row's tiles in order,
+    the rows' interleaved, and a row's tiles read and write only its
+    points). Each tile: thread t reads
+    and scans its `items` consecutive points, the warp's shuffles (lane l
+    takes lane l - d's value for d = 1, 2, 4, 8, 16) scan the threads'
+    products, one thread the warps'; then the look-back over windows of 32
+    earlier tiles of its row, where each earlier tile is seen with its
+    prefix published (with probability `prefix_share`; the row's first
+    always) or with its aggregate only, as a block that is still looking
+    back would be seen. Thread t writes its own points: the inclusive
+    products, or in the exclusive form its prefix, then its inclusive
+    products but the last."""
     rows, n = x.shape
     tile = threads * items
     warps = threads // 32
     tiles_per_row = -(-n // tile)
-    out = np.full((rows, n), 12345, dtype=np.uint64)
+    out = x.copy()
     for r in range(rows):
         aggregate, prefix = [], []
         for part in range(tiles_per_row):
             base = part * tile
-            pts = [int(x[r, base + k]) if base + k < n else 1
+            pts = [int(out[r, base + k]) if base + k < n else 1
                    for k in range(tile)]
             v = []
             for t in range(threads):
@@ -343,12 +355,12 @@ def k8_model(x: np.ndarray, threads: int, items: int, exclusive: bool,
             prefix.append(before * total % P)
             for t in range(threads):
                 pre = before * warp_pre[t // 32] * lane_pre[t] % P
+                w = ([pre] + [pre * v[t][j] % P for j in range(items - 1)]
+                     if exclusive else [pre * a % P for a in v[t]])
                 for j in range(items):
-                    i = base + t * items + j + int(exclusive)
+                    i = base + t * items + j
                     if i < n:
-                        out[r, i] = pre * v[t][j] % P
-        if exclusive and n:
-            out[r, 0] = 1
+                        out[r, i] = w[j]
     return out
 
 
@@ -367,6 +379,86 @@ def test_k8_model_equals_plain(threads, items, n, rows, exclusive):
     for share in (0.0, 0.5, 1.0):
         got = k8_model(x, threads, items, exclusive, rng, share)
         np.testing.assert_array_equal(got, want, err_msg=f"share {share}")
+
+
+# K8's launch on the host: its blocks in the counter's order, each block's
+# threads side by side (tests/torch_host_block.py)
+K8_HOST_GRID = """
+static const uint64_t* g_x;
+static uint64_t *g_out, *g_state;
+static int64_t g_n, g_tiles;
+static int g_exclusive;
+static int64_t g_rows;
+template <bool VEC> static void block() {
+  scan::scan_kernel<VEC>(g_x, g_out, g_state, g_n, g_rows, g_tiles,
+                         g_exclusive);
+}
+extern "C" void host_prefix_prod(const uint64_t* x, uint64_t* out,
+                                 int64_t rows, int64_t n, int exclusive,
+                                 int vec) {
+  g_tiles = rows * scan::tiles_per_row(n);
+  std::vector<uint64_t> state(1 + 3 * g_tiles, 0);
+  g_x = x; g_out = out; g_state = state.data(); g_n = n; g_rows = rows;
+  g_exclusive = exclusive;
+  host_grid(static_cast<unsigned>(g_tiles), scan::THREADS,
+            vec ? block<true> : block<false>);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k8_host(tmp_path_factory):
+    """csrc/scan.cu's kernel built by g++ (its namespace, with
+    tests/torch_host_block.py's stub and goldilocks.cuh's host twins)."""
+    from torch_host_block import HOST_BLOCK_STUB
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    text = (kernels.CSRC / "scan.cu").read_text()
+    start = text.index('#include "goldilocks.cuh"')
+    end = text.index("}  // namespace scan") + len("}  // namespace scan")
+    d = tmp_path_factory.mktemp("k8_host")
+    (d / "stub.h").write_text(HOST_BLOCK_STUB)
+    (d / "k8_host.cpp").write_text(text[start:end] + K8_HOST_GRID)
+    so = d / "libk8host.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-pthread", "-Wno-unknown-pragmas", "-I",
+                    str(kernels.CSRC), "-include", str(d / "stub.h"),
+                    str(d / "k8_host.cpp"), "-o", str(so)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.host_prefix_prod.argtypes = [vp, vp, i64, i64, ctypes.c_int,
+                                     ctypes.c_int]
+    lib.host_prefix_prod.restype = None
+    return lib
+
+
+# single rows around a tile, and (rows, n) arrays: a table's Zs of a few
+# tiles each, and many short rows (a small table's CTL Zs)
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 3), (1, TILE - 1),
+                                    (1, TILE), (1, 2 * TILE + 2),
+                                    (3, 2 * TILE + 5), (4, TILE + 6),
+                                    (10, 300)])
+def test_k8_built_by_gxx_equals_plain(k8_host, rows, n):
+    rng = np.random.default_rng(rows * n)
+    x = rng.integers(0, P, (rows, n), dtype=np.uint64)
+    edge = np.asarray(EDGE[1:], dtype=np.uint64)  # 1, p - 1, EPSILON, 2^32
+    x.reshape(-1)[:len(edge)] = edge[:x.size]
+    if n > 2:
+        x[-1, n // 2] = 0  # the rest of the last row's products are 0
+    src = _t(x)
+    for exclusive in (False, True):
+        want = gf.prefix_prod_plain(src, exclusive=exclusive)
+        for vec in sorted({0, int(n % 2 == 0)}):
+            out = torch.full((rows, n), -1, dtype=torch.int64)
+            k8_host.host_prefix_prod(src.data_ptr(), out.data_ptr(), rows,
+                                     n, int(exclusive), vec)
+            assert torch.equal(out, want), (exclusive, vec, "out of place")
+            y = _t(x)
+            k8_host.host_prefix_prod(y.data_ptr(), y.data_ptr(), rows, n,
+                                     int(exclusive), vec)
+            assert torch.equal(y, want), (exclusive, vec, "in place")
 
 
 def test_card_checks_use_the_sources_constants():

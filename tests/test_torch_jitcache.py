@@ -389,8 +389,12 @@ def test_permutation_zs_match_olavm_tpu_device(seed):
     sets = get_n_grand_product_challenge_sets(
         ch, cfg.num_challenges, stark.permutation_batch_size())
     jsets_ = jsets(jch, jcfg.num_challenges, stark.permutation_batch_size())
+    jitcache.clear()
     got = tctl.permutation_z_polys_device(
         stark, cfg, convert.from_u64(traces[0], "cpu"), sets)
+    # all of the table's batches in one program
+    assert [st["tag"] for st in jitcache.stats().values()] == ["permz"]
+    jitcache.clear()
     want = jctl.permutation_z_polys_device(
         stark, jcfg, jgf.from_u64(traces[0]), jsets_)
     assert len(got) == len(want) > 0
